@@ -3,19 +3,26 @@
 
     python3 chip_smoke.py
 
-The main path is FTL encode of a 512x512x3 u8 raster with the self-contained
+The main paths: FTL encode of a 512x512x3 u8 raster with the self-contained
 "ic" sidecar, then decode driven by that sidecar, one image at a time and as
-a batch of 128 tiles.  Phases, each printed on earlier lines:
+a batch of 128 tiles; and the "ix" sidecar encode and decode at the shapes
+of the bench rows it serves (u8 512x512x3 single and 128 tiles, u16
+1024x1024x1, u16 512x512x8, u32 and u64 1024x1024x1, u64 8 tiles).  Phases,
+each printed on earlier lines:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from qb3_tpu_torch/csrc (seconds);
-  3. K1 (pack), K3 (window copy) and K2 (chunk walk) against their plain
-     PyTorch twins at the main path's shapes: exact equality, median times;
+  2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source;
+  3. K1 (pack), K3 (window copy) and K2 (chunk walk) at the "ic" path's
+     shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
+     gathered windows) at the "ix" shapes, each against its plain PyTorch
+     twin: exact equality, median times;
   4. golden bytes: the committed web fixtures (streams pinned to the C
      reference) re-encoded by the port, and the headline stream's sha256;
-  5. the main path through the public API with the launch counters reset:
-     single image, 128-tile batch, u16 1024x1024x1 and u64 256x256x1
-     round trips; then device-resident and host-to-host MB/s.
+  5. the main paths through the public API with the launch counters reset:
+     "ic" single image, 128-tile batch, u16 1024x1024x1 and u64 256x256x1
+     round trips, "ix" round trips at every "ix" shape and the K5 branch of
+     decode_indexed_narrow; then device-resident and host-to-host MB/s, and
+     the "ix" decode's device time split into K4 and reconstruct.
 
 Any failure exits non-zero and prints no result.  The line before the last
 is {"kernels": [...]}, the last {"ok": true, "device": {...}}.  It needs a
@@ -38,6 +45,9 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
     "pack_groups_chunked": ("qb3_tpu_torch/csrc/pack.cu", "qb3_tpu/ops/pack_pallas.py:228"),
     "extract_windows": ("qb3_tpu_torch/csrc/pack.cu", "qb3_tpu/ops/pack_pallas.py:295"),
     "chunkwalk8": ("qb3_tpu_torch/csrc/chunkwalk.cu", "qb3_tpu/ops/chunkwalk_pallas.py:211"),
+    "wavefront_fused": ("qb3_tpu_torch/csrc/fusedwin.cu", "qb3_tpu/ops/fusedwin_pallas.py:423"),
+    "wavefront8": ("qb3_tpu_torch/csrc/wavefront.cu", "qb3_tpu/ops/wavefront_pallas.py:129"),
+    "wavefront_wide": ("qb3_tpu_torch/csrc/wavefront.cu", "qb3_tpu/ops/wavefront_pallas.py:284"),
 }
 
 
@@ -155,6 +165,105 @@ def kernel_phase(dev, img, tiles, u16):
     return results
 
 
+def ix_cases():
+    """The "ix" shapes: label -> (N, H, W, C) tiles (N = 1: one image)."""
+    from qb3_tpu_torch.benchutil import headline_image
+
+    def tiles(n, h, w, c, dtype, seed):
+        return np.stack([headline_image(h, w, c, seed=seed + i, dtype=dtype) for i in range(n)])
+
+    return {
+        "u8 512x512x3": tiles(1, 512, 512, 3, np.uint8, 42),
+        f"u8 512x512x3 batch{BATCH}": tiles(BATCH, 512, 512, 3, np.uint8, 100),
+        "u16 1024x1024x1": tiles(1, 1024, 1024, 1, np.uint16, 7),
+        "u16 512x512x8": tiles(1, 512, 512, 8, np.uint16, 11),
+        "u32 1024x1024x1": tiles(1, 1024, 1024, 1, np.uint32, 12),
+        "u64 1024x1024x1": tiles(1, 1024, 1024, 1, np.uint64, 13),
+        "u64 1024x1024x1 batch8": tiles(8, 1024, 1024, 1, np.uint64, 200),
+    }
+
+
+def ix_inputs(streams, dev):
+    """Device inputs of the "ix" decode of one stream or a same-shape batch
+    (decode_tiles' flat tile layout), with K4's sizes and the group starts."""
+    import torch
+
+    from qb3_tpu_torch import api, container
+    from qb3_tpu_torch.batch import _flat_tile_layout
+    from qb3_tpu_torch.constants import TYPESIZES
+    from qb3_tpu_torch.ops.decode import payload_words
+
+    infos = [container.parse_headers(s) for s in streams]
+    i0 = infos[0]
+    tbits = 8 * TYPESIZES[i0.dtype]
+    glens = np.stack([np.frombuffer(i.index, "<u2").astype(np.int32) for i in infos])
+    if len(streams) == 1:
+        words, tw32 = api.padded_words(streams[0][i0.data_offset:]), 0
+    else:
+        words, tw32 = _flat_tile_layout(
+            [payload_words(s[i.data_offset:]) for s, i in zip(streams, infos)])
+    nreg, R = api._fused_ix_params(glens, tbits, tw32)
+    goff = (np.cumsum(glens.astype(np.int64), axis=1) - glens
+            + np.arange(len(streams))[:, None] * tw32 * 32).reshape(-1)
+    return dict(words32=torch.from_numpy(words.reshape(-1).view(np.int32)).to(dev),
+                glens=torch.from_numpy(glens.reshape(-1)).to(dev),
+                goff=torch.from_numpy(goff.astype(np.int32)).to(dev), nreg=nreg, R=R,
+                tbits=tbits, nb=i0.nbands, h=i0.ysize, w=i0.xsize, cband=tuple(i0.cband),
+                nblocks=glens.shape[1] // i0.nbands, ntiles=len(streams), tw32=tw32,
+                per_tile=glens.shape[1])
+
+
+def ix_kernel_phase(dev, cases):
+    """Phase 3b: K4 (both modes), K5a and K5b against their twins at the
+    "ix" shapes.  Returns (per-kernel results, {label: streams})."""
+    import torch
+
+    from qb3_tpu_torch import batch
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.ops.decode import ix_parse, ix_regs
+    from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
+    from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain,
+                                                  wavefront_wide, wavefront_wide_plain)
+
+    results, all_streams = {}, {}
+    for label, tiles in cases.items():
+        streams = batch.encode_tiles(tiles, index=True, device=dev)
+        all_streams[label] = streams
+        a = ix_inputs(streams, dev)
+        tb, nreg = a["tbits"], a["nreg"]
+        k4 = (a["words32"], a["goff"], nreg, a["R"], tb)
+        kw = dict(nbands=a["nb"], per_tile=a["per_tile"])
+        err4 = compare("wavefront_fused", wavefront_fused(*k4, **kw),
+                       wavefront_fused_plain(*k4[:3], tb, **kw))
+        ms4 = median_ms(lambda: wavefront_fused(*k4, **kw))
+        plain4 = median_ms(lambda: wavefront_fused_plain(*k4[:3], tb, **kw), 3)
+        regs = ix_regs(a["words32"], a["goff"], nreg)
+        off, rung, kind = (x.to(torch.int32) for x in
+                           ix_parse(regs, a["goff"], tb, a["nb"], a["per_tile"]))
+        given = dict(off=off, rung=rung, kind=kind)
+        err4 = max(err4, compare("wavefront_fused", wavefront_fused(*k4, **given),
+                                 wavefront_fused_plain(*k4[:3], tb, **given)))
+        log(f"K4 wavefront_fused {label} groups {a['goff'].shape[0]} nreg {nreg} R {a['R']}: "
+            f"equal in both modes, kernel {ms4:.4f} ms, twin {plain4:.4f} ms")
+        k5 = (regs[:, :nreg].to(torch.int32).contiguous(), off, rung, kind, nreg)
+        if tb == 8:
+            name, kern, plain = "wavefront8", wavefront8, wavefront8_plain
+        else:
+            name = "wavefront_wide"
+            k5 = k5 + (tb,)
+            kern, plain = wavefront_wide, wavefront_wide_plain
+        err5 = compare(name, kern(*k5), plain(*k5))
+        ms5 = median_ms(lambda: kern(*k5))
+        plain5 = median_ms(lambda: plain(*k5), 3)
+        log(f"K5 {name} {label}: equal, kernel {ms5:.4f} ms, twin {plain5:.4f} ms")
+        for kname, res in (("wavefront_fused", (err4, ms4, plain4)), (name, (err5, ms5, plain5))):
+            if kname in results:  # keep the first shape's times, the worst error
+                res = (max(res[0], results[kname][0]),) + results[kname][1:]
+            results[kname] = res
+        del regs, k5, given
+    return results, all_streams
+
+
 def fixture_phase(dev):
     """Phase 4a: the web fixtures, re-encoded by the port."""
     from qb3_tpu_torch import api, container
@@ -204,7 +313,10 @@ def main() -> int:
                                          host_seconds, sustained)
     from qb3_tpu_torch.constants import HILBERT
     from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8
+    from qb3_tpu_torch.ops.decode import decode_indexed_narrow, reconstruct, reconstruct_batch
+    from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused
     from qb3_tpu_torch.ops.pack_cuda import extract_windows, pack_groups_chunked
+    from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
 
     dev = torch.device("cuda")
     card = card_line()
@@ -230,6 +342,9 @@ def main() -> int:
 
     log("# phase 3: kernels against their twins")
     kres = kernel_phase(dev, img, tiles, u16)
+    cases = ix_cases()
+    ix_res, ix_streams = ix_kernel_phase(dev, cases)
+    kres.update(ix_res)
 
     log("# phase 4: golden bytes")
     fixture_phase(dev)
@@ -238,9 +353,13 @@ def main() -> int:
     check(sha == HEADLINE_SHA256, f"headline sha256 {sha} != {HEADLINE_SHA256}")
     log(f"headline 512x512x3 u8 ic stream sha256 {sha}: matches qb3_tpu")
 
-    log("# phase 5: main path")
+    log("# phase 5: main paths")
     kernels = {"pack_groups_chunked": pack_groups_chunked,
-               "extract_windows": extract_windows, "chunkwalk8": chunkwalk8}
+               "extract_windows": extract_windows, "chunkwalk8": chunkwalk8,
+               "wavefront_fused": wavefront_fused, "wavefront8": wavefront8,
+               "wavefront_wide": wavefront_wide}
+    ic_path = ("pack_groups_chunked", "extract_windows", "chunkwalk8")
+    ix_path = ("pack_groups_chunked", "wavefront_fused", "wavefront8", "wavefront_wide")
     for fn in kernels.values():
         fn.launches = 0
     stream = qt.encode(img, index="ic", device=dev)
@@ -259,11 +378,38 @@ def main() -> int:
         check(np.array_equal(d.read_data(), x) and d.decode_path == "ic",
               f"{name} round trip")
         wide[name] = len(s) / x.nbytes
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    log(f"launch counts on the main path: {launches}")
-    check(all(n > 0 for n in launches.values()), "a kernel was not launched")
-    log(f"lossless: 512x512x3 u8 single (ratio {len(stream) / img.nbytes:.4f}), "
+    launches = {name: kernels[name].launches for name in ic_path}
+    log(f"launch counts on the ic path: {launches}")
+    check(all(n > 0 for n in launches.values()), "a kernel of the ic path was not launched")
+    log(f"lossless ic: 512x512x3 u8 single (ratio {len(stream) / img.nbytes:.4f}), "
         f"batch of {BATCH}, " + ", ".join(f"{k} (ratio {v:.4f})" for k, v in wide.items()))
+
+    for fn in kernels.values():
+        fn.launches = 0
+    for label, x in cases.items():
+        if x.shape[0] == 1:
+            s = qt.encode(x[0], index=True, device=dev)
+            check(s == ix_streams[label][0], f"ix {label}: stream differs from the batch's")
+            d = qt.Decoder(s, device=dev)
+            check(np.array_equal(d.read_data(), x[0]) and d.decode_path == "ix",
+                  f"ix {label} round trip")
+        else:
+            ss = qt.encode_tiles(x, index=True, device=dev)
+            check(ss == ix_streams[label], f"ix {label}: streams differ")
+            check(np.array_equal(qt.decode_tiles(ss, device=dev), x), f"ix {label} round trip")
+        log(f"lossless ix: {label} (ratio "
+            f"{sum(map(len, ix_streams[label])) / x.nbytes:.4f})")
+    for label in ("u8 512x512x3", "u64 1024x1024x1"):
+        # the K5 branch (no fused params), as the TPU runs it without them
+        a = ix_inputs(ix_streams[label], dev)
+        args = (a["words32"], a["glens"], a["nblocks"], a["nb"], False, a["tbits"])
+        check(torch.equal(decode_indexed_narrow(*args, nreg=a["nreg"]),
+                          decode_indexed_narrow(*args, nreg=a["nreg"], fused=a["R"])),
+              f"ix {label}: the K5 branch disagrees with K4")
+    ix_launches = {name: kernels[name].launches for name in ix_path}
+    log(f"launch counts on the ix path: {ix_launches}")
+    check(all(n > 0 for n in ix_launches.values()), "a kernel of the ix path was not launched")
+    launches.update({k: v for k, v in ix_launches.items() if k not in launches})
 
     raw_mb = img.nbytes / 1e6
     zero = torch.zeros(3, dtype=torch.int64, device=dev)
@@ -304,6 +450,38 @@ def main() -> int:
     }
     for name, r in rates.items():
         log(f"{name}: {r:.2f} MB/s ({card})")
+
+    for label, x in cases.items():
+        # device-resident "ix" decode: stream words + sidecar on the card to
+        # the raster on the card, and its split into walk and reconstruct
+        a = ix_inputs(ix_streams[label], dev)
+        n, nb, tb = a["ntiles"], a["nb"], a["tbits"]
+        zero = torch.zeros(nb, dtype=torch.int64, device=dev)
+
+        def walk(a=a):
+            return decode_indexed_narrow(a["words32"], a["glens"], a["nblocks"], nb, False, tb,
+                                         n, a["tw32"], a["nreg"], fused=a["R"])
+
+        def recon(g, a=a, zero=zero):
+            if n == 1:
+                img_, _ = reconstruct(g.reshape(a["nblocks"], nb, 16), zero, a["h"], a["w"],
+                                      nb, HILBERT, a["cband"], tb)
+            else:
+                img_ = reconstruct_batch(g.reshape(n, a["nblocks"], nb, 16), a["h"], a["w"],
+                                         nb, HILBERT, a["cband"], tb)
+            return img_.to(api._TORCH_SIGNED[tb // 8])
+
+        g = walk()
+        check(np.array_equal(recon(g).cpu().numpy().view(x.dtype).reshape(x.shape), x),
+              f"ix {label}: device decode")
+        iters = 20 if x.nbytes < 4e6 else 5
+        t_walk = sustained(walk, iters)
+        t_rec = sustained(lambda: recon(g), iters)
+        t_all = sustained(lambda: recon(walk()), iters)
+        log(f"device decode ix {label}: {x.nbytes / 1e6 / t_all:.2f} MB/s; "
+            f"{t_all * 1e3:.4f} ms = group starts + K4 {t_walk * 1e3:.4f} ms, "
+            f"reconstruct {t_rec * 1e3:.4f} ms ({card})")
+        del g
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -1,10 +1,10 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-nvcc compiles every source in one call into a shared library with a plain C
-interface for sm_90a (H100), which ctypes loads.  The library is built at
-first use into build/qb3_tpu_torch/ beside the package, named by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one
-loads at once.  Nothing here runs at import time: the CPU tests import every
+nvcc compiles every source, one process per source, all at once, and links
+them into a shared library with a plain C interface for sm_90a (H100), which
+ctypes loads.  The library is built at first use into build/qb3_tpu_torch/
+beside the package, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads at once.  Nothing here runs at import time: the CPU tests import every
 module on machines without nvcc.
 """
 
@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "qb3_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # C entry point -> argument types; every entry point returns cudaGetLastError()
@@ -31,6 +31,10 @@ SIGNATURES = {
     "qb3_extract_windows": [_P, _I64, _P, _I32, _I32, _P, _P],
     "qb3_chunkwalk": [_P, _I64, _P, _P, _I32, _P, _P, _I64, _I32, _I32, _I32,
                       _I32, _P, _P],
+    "qb3_wavefront8": [_P, _I64, _I32, _P, _P, _P, _P, _P],
+    "qb3_wavefront_wide": [_P, _I64, _I32, _I32, _P, _P, _P, _P, _P],
+    "qb3_wavefront_fused": [_P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _I64, _I32,
+                            _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -47,8 +51,9 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu unless a library for these sources exists; returns
-    its path.  The compiler's report (ptxas registers and spills) is kept
-    beside it as <library>.log."""
+    its path.  Each source compiles in its own nvcc process, all at once,
+    then one link.  The compilers' report (ptxas registers and spills) is
+    kept beside the library as <library>.log."""
     sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(SRC_DIR, "*.cu*"))):
@@ -59,12 +64,23 @@ def build() -> str:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                          capture_output=True, text=True)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(sources, objs)]
+    steps = [(p.args, p.communicate()[0], p.returncode) for p in procs]
+    if all(rc == 0 for _, _, rc in steps):
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        steps.append((link.args, link.stdout + link.stderr, link.returncode))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    report = "".join(f"$ {' '.join(args)}\n{out}" for args, out, _ in steps)
     with open(lib + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        f.write(report)
+    if any(rc != 0 for _, _, rc in steps):
+        raise RuntimeError(f"nvcc failed:\n{report}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
 

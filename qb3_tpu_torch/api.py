@@ -12,10 +12,11 @@ module is the host-side orchestration: validation, quantization, small
 image repacking, container framing, the RLE0 post-pass and the fallbacks
 (qb3_encode, QB3encode.cpp:488-574).
 
-Slice covered: FTL, BASE_H and BASE_Z (and their RLE forms) with no sidecar
-or the self-contained "ic" sidecar; the Decoder decodes stored and "ic"
-streams.  Everything else raises NotImplementedError naming the ROADMAP.md
-item that ports it; nothing runs on another device instead.
+Slices covered: FTL, BASE_H and BASE_Z (and their RLE forms) with no
+sidecar, the self-contained "ic" sidecar or the "ix" sidecar (per-group bit
+lengths); the Decoder decodes stored, "ic" and "ix" streams.  Everything
+else raises NotImplementedError naming the ROADMAP.md item that ports it;
+nothing runs on another device instead.
 """
 
 from __future__ import annotations
@@ -42,10 +43,11 @@ from .constants import (
 from .errors import QB3DataError, QB3Error, QB3HeaderError, QB3ShapeError
 from .ops.bitpack import group_bits_bound, pack_groups_auto, words_to_bytes
 from .ops.chunkwalk_cuda import ic_walk_params
-from .ops.decode import payload_words, reconstruct
+from .ops.decode import _NREG_IX, decode_indexed_narrow, payload_words, reconstruct
 from .ops.decode_chunked import (IC_DEFAULT_K, chunk_spans, decode_chunked_auto,
                                  pack_ic, parse_ic)
 from .ops.encode import encode_fast_blocks
+from .ops.fusedwin_cuda import ix_window_R
 
 NP_FROM_DT = {
     DType.U8: np.uint8, DType.I8: np.int8, DType.U16: np.uint16, DType.I16: np.int16,
@@ -60,7 +62,6 @@ _NP_SIGNED = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 _NOT_PORTED = {
     "walk": "ROADMAP.md Queue 1 item 10 (slice 2: decode without a sidecar, "
             "the serial walk)",
-    "ix": "ROADMAP.md Queue 1 item 11 (slice 3: the ix sidecar)",
     "best": "ROADMAP.md Queue 1 item 12 (slice 4: best mode, ib and ic-best)",
 }
 
@@ -223,7 +224,8 @@ class Encoder:
         self.stride = 0
         self.cband = default_cband(bands)
         self.error = Error.OK
-        # decode sidecar: False, or "ic" (chunked anchors, ~1%)
+        # decode sidecar: False, True/"ix" (per-group bit lengths, u16 each)
+        # or "ic" (chunked anchors, ~1%)
         self.with_index = False
         self.index_chunk_blocks = 0  # 0 = IC_DEFAULT_K
         self._last_glens = None
@@ -301,8 +303,6 @@ class Encoder:
             raise
 
     def _encode(self, source: np.ndarray) -> bytes:
-        if self.with_index not in (False, "ic"):
-            raise not_ported("ix")
         src = self._source_view(source)
         raw_size = src.nbytes
         if self.xsize * self.ysize <= B2:
@@ -329,6 +329,8 @@ class Encoder:
         index, index_sig = None, b"ix"
         if self.with_index == "ic":
             index, index_sig = self._chunked_sidecar(entry_runbits), b"ic"
+        elif self.with_index:
+            index = self._last_glens.astype("<u2").tobytes()
         header = container.write_headers(
             self.xsize, self.ysize, self.nbands, self.dtype, mode,
             self.cband, self.quanta, self.order, index, index_sig)
@@ -427,13 +429,37 @@ def ic_decode(inp: dict, nblocks: int, nb: int, h: int, w: int, order: int,
     return img
 
 
+def _indexed_nreg(glens: np.ndarray, tbits: int) -> int:
+    """Register-window words per "ix" group, from the sidecar's longest
+    group rather than the format's worst case (qb3_tpu api._indexed_nreg)."""
+    if glens.size == 0:
+        return _NREG_IX[tbits]
+    need = (31 + int(glens.max()) + 1 + 31) // 32 + 1
+    return min(_NREG_IX[tbits], max(4, -(-need // 4) * 4))
+
+
+def _fused_ix_params(glens: np.ndarray, tbits: int, tile_words32: int = 0):
+    """K4's window sizes, computed once for an "ix" decode: (nreg, R), the
+    register-window words per group and the words each K4 block stages.
+
+    glens: (ngroups,) sidecar lengths of one stream, or (ntiles, ngroups)
+    of a batch in the flat tile layout (tiles tile_words32 words apart)."""
+    glens = np.atleast_2d(glens)
+    nreg = _indexed_nreg(glens, tbits)
+    ends = np.cumsum(glens.astype(np.int64), axis=1)
+    tbase = np.arange(glens.shape[0], dtype=np.int64)[:, None] * (tile_words32 * 32)
+    R = ix_window_R((ends - glens + tbase).reshape(-1), nreg)
+    assert 4 <= nreg <= _NREG_IX[tbits] and R % 4 == 0, (nreg, R)
+    return nreg, R
+
+
 class Decoder:
     """Mirror of the 3-stage decsp reader (QB3decode.cpp:130-264); the
     decode runs on `device`.
 
     After read_data, `decode_path` records which decode engine ran
-    ("stored" or "ic"); `failed` mirrors the reference's decode failure flag
-    when read_data(partial=True) returned best-effort output.
+    ("stored", "ic" or "ix"); `failed` mirrors the reference's decode
+    failure flag when read_data(partial=True) returned best-effort output.
     """
 
     def __init__(self, stream: bytes, device="cuda"):
@@ -509,20 +535,36 @@ class Decoder:
         if is_best_mode(info.mode):
             raise not_ported("best")
         nblocks = ((h + B - 1) // B) * ((w + B - 1) // B)
+        tbits = 8 * np.dtype(uns_dt).itemsize
+        order, cband = info.order or HILBERT, tuple(info.cband)
+        apply_step = info.mode != Mode.FTL
         # like qb3_tpu, RLE-wrapped streams (not a fast mode) take the walk
         fast = is_fast_mode(info.mode)
-        meta = None
         if info.index_chunked is not None and fast:
             meta = parse_ic(info.index_chunked, nblocks, nb)
-        if meta is None:
-            raise not_ported("ix" if info.index is not None and fast else "walk")
+            if meta is not None:
+                inp = ic_inputs(padded_words(data), [meta], 0, tbits, self.device)
+                img = ic_decode(inp, nblocks, nb, h, w, order, cband, apply_step, tbits)
+                self.decode_path = "ic"
+                return self._end_check(from_carrier(img, tbits // 8),
+                                       len(data) * 8 - meta[3])
 
-        tbits = 8 * np.dtype(uns_dt).itemsize
-        inp = ic_inputs(padded_words(data), [meta], 0, tbits, self.device)
-        img = ic_decode(inp, nblocks, nb, h, w, info.order or HILBERT,
-                        tuple(info.cband), info.mode != Mode.FTL, tbits)
-        self.decode_path = "ic"
-        return self._end_check(from_carrier(img, tbits // 8), len(data) * 8 - meta[3])
+        glens = None
+        if info.index is not None and fast:
+            cand = np.frombuffer(info.index, dtype="<u2")
+            if cand.size == nblocks * nb and int(cand.astype(np.int64).sum()) < 1 << 31:
+                glens = cand.astype(np.int32)
+        if glens is None:
+            raise not_ported("walk")
+        nreg, R = _fused_ix_params(glens, tbits)
+        words32 = torch.from_numpy(padded_words(data).view(np.int32)).to(self.device)
+        g = decode_indexed_narrow(words32, torch.from_numpy(glens).to(self.device),
+                                  nblocks, nb, apply_step, tbits, nreg=nreg, fused=R)
+        zero = torch.zeros(nb, dtype=torch.int64, device=g.device)
+        img, _ = reconstruct(g.reshape(nblocks, nb, B2), zero, h, w, nb, order, cband, tbits)
+        self.decode_path = "ix"
+        return self._end_check(from_carrier(img, tbits // 8),
+                               len(data) * 8 - int(glens.sum()))
 
     def _end_check(self, img: np.ndarray, leftover: int) -> np.ndarray:
         """The reference end-of-stream rule: >7 bits of extra input fail

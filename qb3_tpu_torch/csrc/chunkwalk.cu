@@ -109,19 +109,7 @@ __global__ void chunkwalk_kernel(const uint32_t* __restrict__ words, int64_t n32
       o += shift;
     }
 
-    if (apply_step && is_group) {
-      // step-bit restore: flip bit `rung` of value #ones when the rung bits
-      // form the 1*0* pattern
-      uint32_t acc = 0;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) acc |= ((vals[i] >> rung) & 1u) << i;
-      const int ones = acc ? 32 - __clz(acc) : 0;
-      if ((acc & (acc + 1)) == 0 && ones < 16) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          if (i == ones) vals[i] ^= 1u << rung;
-      }
-    }
+    if (apply_step && is_group) qb3::step_restore(vals, rung);
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       dst[g * 4 + q] = make_uint4(vals[4 * q], vals[4 * q + 1], vals[4 * q + 2], vals[4 * q + 3]);

@@ -1,8 +1,8 @@
 // Shared QB3 decode primitives for the CUDA kernels of qb3_tpu_torch.
 //
-// Ported from the JAX package's arithmetic decoders: _vlc32 / _vlc32w
-// (qb3_tpu/ops/wavefront_pallas.py), _vlc_decode_arith and dsw_arith
-// (qb3_tpu/ops/decode.py).  On a TPU these work on int32 lanes because
+// Ported from the JAX package's arithmetic decoders: _vlc32 / _vlc32w /
+// _vlc64 (qb3_tpu/ops/wavefront_pallas.py), _vlc_decode_arith, dsw_arith
+// and the step restore (qb3_tpu/ops/decode.py).  On a TPU these work on int32 lanes because
 // Mosaic has no 64-bit integers; here they take native unsigned words.
 #pragma once
 
@@ -28,6 +28,42 @@ __device__ __forceinline__ uint32_t vlc_group32(uint32_t w, int rung, int* len) 
     v = v == a ? a + 1 : (v == a + 1 ? a : v);
   }
   return v;
+}
+
+// Group-context VLC decode at `rung` (1..63) from a 64-bit stream window
+// `w`, the counterpart of _vlc64 (wavefront_pallas.py) on a native word.
+// Sets *len up to 65: the rung-63 long form's 65th bit (value bit 62) lies
+// past the window, and the caller ORs it in.  The middle swap applies to the
+// tabled rungs only, and only where the value fits 32 bits (vhi == 0).
+__device__ __forceinline__ uint64_t vlc64(uint64_t w, int rung, int* len) {
+  const int r = rung < 1 ? 1 : rung;
+  const uint64_t rbit = 1ull << r;
+  const uint64_t vmask = rbit - 1;
+  const bool shrt = (w & 1ull) == 0;
+  const int n = static_cast<int>((w >> 1) & 1ull);
+  uint64_t v = shrt ? (w & vmask) >> 1 : ((w >> 2) & vmask) | (n ? rbit : rbit >> 1);
+  *len = shrt ? r : r + 1 + n;
+  if (r <= 7 && (v >> 32) == 0) {
+    const uint64_t a = r == 1 ? 1ull : (r == 2 ? 3ull : rbit - 1);
+    v = v == a ? a + 1 : (v == a + 1 ? a : v);
+  }
+  return v;
+}
+
+// BASE-mode step-bit restore of one decoded group (QB3decode.h:285-289):
+// when the rung bits of the 16 values form the pattern 1*0*, flip bit `rung`
+// of value #ones.  The caller applies it to group-coded groups (rung >= 1).
+template <typename T>
+__device__ __forceinline__ void step_restore(T (&vals)[16], int rung) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc |= static_cast<uint32_t>((vals[i] >> rung) & 1u) << i;
+  const int ones = acc ? 32 - __clz(acc) : 0;
+  if ((acc & (acc + 1)) == 0 && ones < 16) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i == ones) vals[i] ^= static_cast<T>(1) << rung;
+  }
 }
 
 // Codeswitch decode (the DSW table, QB3decode.h:613-618) from the stream

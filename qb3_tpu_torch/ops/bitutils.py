@@ -90,3 +90,27 @@ def words_u32(words):
         return words.reshape(-1).to(torch.int64) & M32
     w = words.reshape(-1, 1)
     return torch.cat([w & M32, srl(w, 32)], dim=1).reshape(-1)
+
+
+def words_u64(words):
+    """Flat int64 view of the payload as little-endian u64 words; converse
+    of :func:`words_u32` (int32 u32 pairs are joined low word first)."""
+    if words.dtype == torch.int64:
+        return words.reshape(-1)
+    w = words.reshape(-1, 2).to(torch.int64) & M32
+    return w[:, 0] | (w[:, 1] << 32)
+
+
+def peek64(words64, bitpos):
+    """64 stream bits at any-shape int64 bit offsets (iBits::peek,
+    bitstream.h:39-50), with JAX's gather rules: a negative word index
+    counts from the end, then indices clamp into the stream."""
+    n = words64.shape[0]
+
+    def word(i):
+        return words64[torch.where(i < 0, i + n, i).clamp(0, n - 1)]
+
+    widx = bitpos >> 6
+    sh = bitpos & 63
+    hi = torch.where(sh == 0, 0, word(widx + 1) << ((64 - sh) & 63))
+    return srl(word(widx), sh) | hi

@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from ..constants import B2
-from .bitutils import srl, step_flip_index, words_u32
-from .decode import _vlc_decode_arith, dsw_arith
+from .bitutils import srl, words_u32
+from .decode import _vlc_decode_arith, dsw_arith, step_restore, window64
 
 # static register-window sizes per element width: cover one group's worst
 # span (prefix + 16 codes [+ overflow bits]) from any 32-bit phase
@@ -105,7 +105,6 @@ def walk_chunks(read, n32: int, starts, entry_rungs, k_blocks: int, nbands: int,
     NREG = _NREG[tbits]
     per = _PER[tbits]
     dev = starts.device
-    lane = torch.arange(B2, device=dev)
     reg_idx = torch.arange(NREG, device=dev)
 
     def group_step(off, rung_band):
@@ -116,14 +115,7 @@ def walk_chunks(read, n32: int, starts, entry_rungs, k_blocks: int, nbands: int,
         regs = torch.cat([regs, torch.zeros_like(regs[:, :2])], dim=1)
 
         def window(o):
-            """64 stream bits at register-set offset o; word indices outside
-            [0, NREG-1] read as NREG-1 (the JAX select chain's default)."""
-            wi = o >> 5
-            wi = torch.where((wi < 0) | (wi > NREG - 1), NREG - 1, wi)[:, None]
-            sh = o & 31
-            lo = (regs.gather(1, wi) | (regs.gather(1, wi + 1) << 32))[:, 0]
-            w2 = regs.gather(1, wi + 2)[:, 0]
-            return srl(lo, sh) | torch.where(sh == 0, 0, w2 << ((64 - sh) & 63))
+            return window64(regs, o)
 
         # ---- codeswitch parse (QB3decode.h:613-618)
         w0 = window(phase)
@@ -156,10 +148,7 @@ def walk_chunks(read, n32: int, starts, entry_rungs, k_blocks: int, nbands: int,
         g = torch.stack(outs, dim=-1)  # (nchunks, B2)
 
         if apply_step:
-            match, ones = step_flip_index(g, rung)
-            do = is_group & match & (rung >= 1)
-            flip = do[:, None] & (lane == ones[:, None]) & (ones[:, None] < B2)
-            g = g ^ (flip.to(torch.int64) << rung[:, None])
+            g = step_restore(g, rung, is_group)
         return g, (off64 + (o - phase)).to(torch.int32), rung
 
     off = starts.to(torch.int32)

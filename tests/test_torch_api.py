@@ -153,14 +153,12 @@ def test_tiles_equal(dtype, mode):
 
 def test_not_ported_paths_raise():
     img = corpus.natural8(16, 16, 1, seed=18)
-    for stream in (qb3_tpu.encode(img), qb3_tpu.encode(img, index=True),
+    for stream in (qb3_tpu.encode(img),
                    qb3_tpu.encode(img, mode=Mode.CF_H, index="ic")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             qt.decode(stream, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         qt.encode(img, mode=Mode.CF_H, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        qt.encode(img, index=True, device=CPU)
 
 
 def test_headline_sha256():

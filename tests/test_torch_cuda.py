@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (pack), K2 (chunk walk) and K3 (window copy) of
-qb3_tpu_torch against their plain PyTorch twins, on the card.
+"""The CUDA kernels K1 (pack), K2 (chunk walk), K3 (window copy), K4 (fused
+"ix" walk) and K5a / K5b (walks on gathered windows) of qb3_tpu_torch
+against their plain PyTorch twins, on the card.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither jax nor qb3_tpu, so it also runs on a machine without JAX:
@@ -13,13 +14,18 @@ import torch
 
 import qb3_tpu_torch as qt
 from qb3_tpu_torch import container
-from qb3_tpu_torch.api import ic_inputs, padded_words, to_carrier
+from qb3_tpu_torch.api import _fused_ix_params, ic_inputs, padded_words, to_carrier
+from qb3_tpu_torch.batch import _flat_tile_layout
 from qb3_tpu_torch.benchutil import headline_image
 from qb3_tpu_torch.constants import HILBERT, TYPESIZES, Mode
 from qb3_tpu_torch.ops import bitpack, pack_cuda
 from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8, chunkwalk8_plain
+from qb3_tpu_torch.ops.decode import ix_parse, ix_regs, payload_words
 from qb3_tpu_torch.ops.decode_chunked import decode_chunked, parse_ic
 from qb3_tpu_torch.ops.encode import encode_fast_blocks
+from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
+from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
+                                              wavefront_wide_plain)
 
 
 @pytest.fixture
@@ -117,4 +123,110 @@ def test_cuda_roundtrip_equals_cpu(cuda, dtype):
     tiles = np.stack([headline_image(32, 32, 3, seed=s, dtype=dtype) for s in range(3)])
     streams = qt.encode_tiles(tiles, index="ic", device=cuda)
     assert streams == qt.encode_tiles(tiles, index="ic", device="cpu")
+    np.testing.assert_array_equal(qt.decode_tiles(streams, device=cuda), tiles)
+
+
+def _ix_inputs(tiles, mode, dev):
+    """(words32, goff, glens (ntiles, ngroups), per_tile) of a batch of "ix"
+    streams in decode_tiles' flat tile layout (one tile: the padded stream)."""
+    streams = qt.encode_tiles(tiles, mode=mode, index=True, device="cpu")
+    infos = [container.parse_headers(x) for x in streams]
+    glens = np.stack([np.frombuffer(i.index, "<u2").astype(np.int64) for i in infos])
+    if len(streams) == 1:
+        words, tw32 = padded_words(streams[0][infos[0].data_offset:]), 0
+    else:
+        words, tw32 = _flat_tile_layout([payload_words(x[i.data_offset:])
+                                         for x, i in zip(streams, infos)])
+    goff = np.cumsum(glens, axis=1) - glens + np.arange(len(streams))[:, None] * tw32 * 32
+    words32 = torch.from_numpy(words.reshape(-1).view(np.int32)).to(dev)
+    return words32, torch.from_numpy(goff.reshape(-1).astype(np.int32)).to(dev), glens, \
+        glens.shape[1]
+
+
+def _check_k4(words32, goff, nreg, R, tbits, nb, per_tile, apply_step):
+    """K4 in both modes against its twin on the same device tensors."""
+    before = wavefront_fused.launches
+    g, rung = wavefront_fused(words32, goff, nreg, R, tbits, nbands=nb, per_tile=per_tile,
+                              apply_step=apply_step)
+    torch.cuda.synchronize()
+    assert wavefront_fused.launches == before + 1
+    want_g, want_rung = wavefront_fused_plain(words32, goff, nreg, tbits, nb,
+                                              per_tile=per_tile, apply_step=apply_step)
+    assert torch.equal(rung, want_rung) and torch.equal(g, want_g)
+    regs = ix_regs(words32, goff, nreg)
+    off, rung, kind = (x.to(torch.int32) for x in ix_parse(regs, goff, tbits, nb, per_tile))
+    got = wavefront_fused(words32, goff, nreg, R, tbits, off=off, rung=rung, kind=kind,
+                          apply_step=apply_step)
+    assert torch.equal(got, wavefront_fused_plain(words32, goff, nreg, tbits, off=off,
+                                                  rung=rung, kind=kind,
+                                                  apply_step=apply_step))
+
+
+@pytest.mark.parametrize("dtype,mode,shape,ntiles", [
+    (np.uint8, Mode.FTL, (256, 256, 3), 1),      # 96 blocks: a long look-back chain
+    (np.uint8, Mode.BASE_H, (20, 24, 3), 7),     # 90 groups per tile: resets mid-block
+    (np.uint16, Mode.BASE_Z, (64, 48, 8), 3),
+    (np.uint32, Mode.FTL, (36, 28, 5), 4),       # 315 groups per tile
+    (np.uint64, Mode.BASE_H, (64, 64, 1), 2),
+    (np.uint8, Mode.FTL, (8, 8, 130), 3),        # more bands than threads per block
+])
+def test_k4_matches_twin(cuda, dtype, mode, shape, ntiles):
+    tiles = np.stack([headline_image(*shape, seed=20 + s, dtype=dtype) for s in range(ntiles)])
+    tiles[:, ::8, ::8] = np.iinfo(dtype).max  # high rungs
+    tbits = 8 * np.dtype(dtype).itemsize
+    words32, goff, glens, per_tile = _ix_inputs(tiles, mode, cuda)
+    nreg, R = _fused_ix_params(glens, tbits, 0)
+    _check_k4(words32, goff, nreg, R, tbits, shape[2], per_tile, mode != Mode.FTL)
+    _check_k4(words32, goff, nreg, 4, tbits, shape[2], per_tile, False)  # span of 4: stream reads
+
+
+@pytest.mark.parametrize("tbits", [8, 16, 32, 64])
+def test_k4_garbage_matches_twin(cuda, tbits):
+    """Random words and group starts, some past either end of the stream:
+    JAX's gather clamps and the select chains' defaults, in both modes."""
+    rng = np.random.default_rng(tbits)
+    words32 = torch.from_numpy(rng.integers(-2**31, 2**31, 3000, dtype=np.int64)
+                               .astype(np.int32)).to(cuda)
+    goff = np.sort(rng.integers(-4000, 3000 * 32 + 4000, 1050)).astype(np.int32)
+    goff = torch.from_numpy(goff).to(cuda)
+    for nreg, R in ((4, 64), ({8: 8, 16: 12, 32: 20, 64: 36}[tbits], 1024)):
+        _check_k4(words32, goff, nreg, R, tbits, 3, 105, True)
+
+
+@pytest.mark.parametrize("tbits", [8, 16, 32, 64])
+def test_k5_matches_twin(cuda, tbits):
+    """Valid windows from an "ix" stream, then garbage over the domain."""
+    dtype = {8: np.uint8, 16: np.uint16, 32: np.uint32, 64: np.uint64}[tbits]
+    tiles = headline_image(64, 40, 2, seed=9, dtype=dtype)[None]
+    tiles[:, ::8, ::8] = np.iinfo(dtype).max
+    words32, goff, glens, per_tile = _ix_inputs(tiles, Mode.FTL, cuda)
+    nreg, _ = _fused_ix_params(glens, tbits)
+    regs = ix_regs(words32, goff, nreg)
+    off, rung, kind = ix_parse(regs, goff, tbits, 2, per_tile)
+    rng = np.random.default_rng(tbits)
+    n = 5000
+    garbage = (rng.integers(-2**31, 2**31, (n, nreg), dtype=np.int64).astype(np.int32),
+               rng.integers(0, 64, n), rng.integers(0, tbits, n), rng.integers(0, 3, n))
+    for args in ((regs[:, :nreg], off, rung, kind),
+                 tuple(torch.from_numpy(x) for x in garbage)):
+        args = tuple(x.to(cuda, torch.int32).contiguous() for x in args) + (nreg,)
+        if tbits == 8:
+            got, want = wavefront8(*args), wavefront8_plain(*args)
+        else:
+            got, want = wavefront_wide(*args, tbits), wavefront_wide_plain(*args, tbits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint64])
+def test_cuda_ix_roundtrip_equals_cpu(cuda, dtype):
+    img = headline_image(60, 52, 3, seed=8, dtype=dtype)
+    s_gpu = qt.encode(img, index=True, device=cuda)
+    assert s_gpu == qt.encode(img, index=True, device="cpu")
+    dec = qt.Decoder(s_gpu, device=cuda)
+    np.testing.assert_array_equal(dec.read_data(), img)
+    assert dec.decode_path == "ix"
+    tiles = np.stack([headline_image(32, 36, 3, seed=s, dtype=dtype) for s in range(3)])
+    streams = qt.encode_tiles(tiles, index=True, device=cuda)
+    assert streams == qt.encode_tiles(tiles, index=True, device="cpu")
     np.testing.assert_array_equal(qt.decode_tiles(streams, device=cuda), tiles)
