@@ -5,27 +5,41 @@
 
 The main paths: FTL encode of a 512x512x3 u8 raster with the self-contained
 "ic" sidecar, then decode driven by that sidecar, one image at a time and as
-a batch of 128 tiles; and the "ix" sidecar encode and decode at the shapes
-of the bench rows it serves (u8 512x512x3 single and 128 tiles, u16
-1024x1024x1, u16 512x512x8, u32 and u64 1024x1024x1, u64 8 tiles).  Phases,
-each printed on earlier lines:
+a batch of 128 tiles; the "ix" sidecar encode and decode at the shapes of
+the bench rows it serves (u8 512x512x3 single and 128 tiles, u16
+1024x1024x1, u16 512x512x8, u32 and u64 1024x1024x1, u64 8 tiles); and the
+image-layout encode that the public encode takes for u16/u32/u64 images, at
+the four wide single shapes.  Phases, each printed on earlier lines:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source;
   3. K1 (pack), K3 (window copy) and K2 (chunk walk) at the "ic" path's
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
-     gathered windows) at the "ix" shapes, each against its plain PyTorch
-     twin: exact equality, median times;
+     gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
+     + pack) at the wide shapes, FTL and BASE, each against its plain
+     PyTorch twin: exact equality, median times;
   4. golden bytes: the committed web fixtures (streams pinned to the C
-     reference) re-encoded by the port, and the headline stream's sha256;
+     reference) re-encoded by the port, the headline stream's sha256 and
+     the four wide "ix" streams' sha256s (through the image-layout encode);
   5. the main paths through the public API with the launch counters reset:
      "ic" single image, 128-tile batch, u16 1024x1024x1 and u64 256x256x1
      round trips, "ix" round trips at every "ix" shape and the K5 branch of
-     decode_indexed_narrow; then device-resident and host-to-host MB/s, and
-     the "ix" decode's device time split into K4 and reconstruct.
+     decode_indexed_narrow, the wide images' "ix" and "ic" round trips
+     through the image-layout encode; then device-resident and host-to-host
+     MB/s, the "ix" decode's device time split into K4 and reconstruct, and
+     at the wide shapes the block encode (phase A + K1) against the
+     image-layout one (equal outputs, device MB/s, the latter split into
+     phase A and K8).
 
-Any failure exits non-zero and prints no result.  The line before the last
-is {"kernels": [...]}, the last {"ok": true, "device": {...}}.  It needs a
+Launch counts are set to 0 just before each main path and read just after;
+each kernel's count in the result is from the path that runs it.  Any
+failure exits non-zero and prints no result.  The line before the last is
+{"kernels": [...]} (each kernel's error, median ms, twin ms, bound ms, and
+a one-call PyTorch yardstick where one exists), the last {"ok": true,
+"device": {...}}.  A bound is the larger of the bytes the function needs
+(each input read once and each output written once, at the width of its
+values, not of the port's int64 carriers) at the memory rate and the
+integer operations this run's data needs at the INT32 rate.  It needs a
 CUDA device and the repository around it; it imports no JAX.
 """
 
@@ -48,7 +62,24 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
     "wavefront_fused": ("qb3_tpu_torch/csrc/fusedwin.cu", "qb3_tpu/ops/fusedwin_pallas.py:423"),
     "wavefront8": ("qb3_tpu_torch/csrc/wavefront.cu", "qb3_tpu/ops/wavefront_pallas.py:129"),
     "wavefront_wide": ("qb3_tpu_torch/csrc/wavefront.cu", "qb3_tpu/ops/wavefront_pallas.py:284"),
+    "encode_pack_image": ("qb3_tpu_torch/csrc/encode_image.cu",
+                          "qb3_tpu/ops/encode_pallas.py:322"),
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# H100 SXM INT32 rate: 64 INT32 lanes per SM and clock (NVIDIA H100 Tensor
+# Core GPU Architecture), 132 SMs, at the 1.98 GHz that the data sheet's
+# 67 TFLOP/s float32 implies (132 SMs * 128 lanes * 2 flops * 1.98e9)
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer operations a VLC needs, at the fewest: code one value (the
+# rung 1..7 swap test, its two top bits, code and length) 5; place a code
+# or one bit (shift to the bit offset, OR into the word, advance) 3; decode
+# one value (peek at the cursor, the short / nominal tests, the value, the
+# swap, advance) 8; a group's prefix or codeswitch and start bit 6.  Codes
+# of u32 and u64 values pass 32 bits and take twice as many.
+CODE_OPS, PLACE_OPS, DECODE_OPS, GROUP_OPS = 5, 3, 8, 6
+# bytes of one K1 input code: u8 codes reach 9 bits, u16 17, u32 33; the
+# 65th bit of a u64 code is a symbol of its own
+CODE_BYTES = {8: 2, 16: 4, 32: 8, 64: 8}
 
 
 def fail(msg: str):
@@ -94,6 +125,48 @@ def walk_inputs(streams, dev):
                 nb=i0.nbands, cband=tuple(i0.cband))
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def stream_bytes(total) -> int:
+    """Bytes of the stream words up to the total bits (per tile, summed)."""
+    return int(((total + 31) // 32).sum()) * 4
+
+
+def payload_bytes(streams) -> int:
+    """Bytes of the streams' payloads (headers and sidecars left out)."""
+    from qb3_tpu_torch import container
+
+    return sum(len(s) - container.parse_headers(s).data_offset for s in streams)
+
+
+def wide(tbits: int) -> int:
+    """Operations per code: twice as many where codes pass 32 bits."""
+    return 2 if tbits >= 32 else 1
+
+
+def walk_ops(vals, tbits: int) -> int:
+    """Integer operations a walk needs to decode the (..., 16) mag-sign
+    values it returned: groups with a value above 1 decode 16 codes, groups
+    of zeros and ones 16 single bits, and every group its codeswitch."""
+    import torch
+
+    vals = vals.reshape(-1, 16).to(torch.int64)
+    coded = ((vals & ~1) != 0).any(-1)
+    ones = (vals != 0).any(-1) & ~coded
+    return (16 * (int(coded.sum()) * DECODE_OPS * wide(tbits) + int(ones.sum()) * PLACE_OPS)
+            + vals.shape[0] * GROUP_OPS)
+
+
+def bound(need) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the integer operations over the INT32 rate."""
+    nbytes, ops = need
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def compare(name, got, want):
     """Exact equality of kernel and twin outputs -> max abs difference."""
     import torch
@@ -120,7 +193,7 @@ def kernel_phase(dev, img, tiles, u16):
     from qb3_tpu_torch.ops.encode import encode_fast_blocks
 
     results = {}
-    n_words = (api.max_encoded_size(512, 512, 3, 0) + 3) // 4 + 2
+    n_words = api.stream_words(512, 512, 3, 0)
     maxbits = bitpack.group_bits_bound(8, best=False)
     for label, x in (("single", img), (f"batch{BATCH}", tiles)):
         lead = x.shape[:-3]
@@ -129,13 +202,17 @@ def kernel_phase(dev, img, tiles, u16):
                                                HILBERT, (1, 1, 1), True, 8,
                                                lanewise=bool(lead))
         args = (codes, lens, n_words, maxbits)
-        err = compare("pack_groups_chunked", pack_cuda.pack_groups_chunked(*args),
-                      bitpack.pack_groups(*args))
+        got = pack_cuda.pack_groups_chunked(*args)
+        err = compare("pack_groups_chunked", got, bitpack.pack_groups(*args))
+        ngroups, placed = lens.numel() // lens.shape[-1], int((lens > 0).sum())
+        need = (codes.numel() * CODE_BYTES[8] + lens.numel() + 2 * ngroups
+                + stream_bytes(got[1]) + nbytes(got[1]),
+                placed * PLACE_OPS * wide(8) + ngroups * GROUP_OPS)
         ms = median_ms(lambda: pack_cuda.pack_groups_chunked(*args))
         plain = median_ms(lambda: bitpack.pack_groups(*args), 5)
         log(f"K1 pack_groups_chunked {label} codes {tuple(codes.shape)}: equal, "
             f"kernel {ms:.4f} ms, twin {plain:.4f} ms")
-        results.setdefault("pack_groups_chunked", (err, ms, plain))
+        results.setdefault("pack_groups_chunked", (err, ms, plain, need, None))
         del codes, lens
 
     cases = (("single u8", [api.encode(img, index="ic", device=dev)], 3),
@@ -151,17 +228,28 @@ def kernel_phase(dev, img, tiles, u16):
         err3 = compare("extract_windows", win, pack_cuda.extract_windows_plain(*wargs))
         ms3 = median_ms(lambda: pack_cuda.extract_windows(*wargs))
         plain3 = median_ms(lambda: pack_cuda.extract_windows_plain(*wargs), 5)
+        # yardstick: torch.take on the zero-padded stream, index built untimed
+        padded = torch.cat([a["words32"], a["words32"].new_zeros(a["R"])])
+        idx = (a["wrow"].to(torch.int64)[:, None] * 128
+               + torch.arange(a["R"], device=dev)).clamp(max=padded.numel() - 1)
+        compare("extract_windows", torch.take(padded, idx), win)
+        lib3 = median_ms(lambda: torch.take(padded, idx))
         log(f"K3 extract_windows {label} windows {tuple(win.shape)}: equal, "
-            f"kernel {ms3:.4f} ms, twin {plain3:.4f} ms")
+            f"kernel {ms3:.4f} ms, twin {plain3:.4f} ms, torch.take {lib3:.4f} ms")
         cargs = (a["words32"], win, a["wrow"], a["starts"], a["entry"], a["k"],
                  a["nb"], False, ubits)
-        err2 = compare("chunkwalk8", chunkwalk8(*cargs), chunkwalk8_plain(*cargs))
+        walked = chunkwalk8(*cargs)
+        err2 = compare("chunkwalk8", walked, chunkwalk8_plain(*cargs))
         ms2 = median_ms(lambda: chunkwalk8(*cargs))
         plain2 = median_ms(lambda: chunkwalk8_plain(*cargs), 3)
         log(f"K2 chunkwalk8 {label} ubits {ubits} chunks {a['starts'].shape[0]}: "
             f"equal, kernel {ms2:.4f} ms, twin {plain2:.4f} ms")
-        results.setdefault("extract_windows", (err3, ms3, plain3))
-        results.setdefault("chunkwalk8", (err2, ms2, plain2))
+        tbits = 8 if ubits == 3 else 16
+        results.setdefault("extract_windows", (err3, ms3, plain3, (2 * nbytes(win), 0), lib3))
+        results.setdefault("chunkwalk8", (err2, ms2, plain2, (
+            payload_bytes(streams) + 4 * a["starts"].numel() + a["entry"].numel()
+            + walked.numel() * tbits // 8, walk_ops(walked, tbits)), None))
+        del walked, padded, idx
     return results
 
 
@@ -233,8 +321,11 @@ def ix_kernel_phase(dev, cases):
         tb, nreg = a["tbits"], a["nreg"]
         k4 = (a["words32"], a["goff"], nreg, a["R"], tb)
         kw = dict(nbands=a["nb"], per_tile=a["per_tile"])
-        err4 = compare("wavefront_fused", wavefront_fused(*k4, **kw),
-                       wavefront_fused_plain(*k4[:3], tb, **kw))
+        walked = wavefront_fused(*k4, **kw)
+        err4 = compare("wavefront_fused", walked, wavefront_fused_plain(*k4[:3], tb, **kw))
+        ng = a["goff"].numel()
+        need4 = (payload_bytes(streams) + ng * (4 + 16 * tb // 8 + 1),
+                 walk_ops(walked[0], tb))
         ms4 = median_ms(lambda: wavefront_fused(*k4, **kw))
         plain4 = median_ms(lambda: wavefront_fused_plain(*k4[:3], tb, **kw), 3)
         regs = ix_regs(a["words32"], a["goff"], nreg)
@@ -252,16 +343,68 @@ def ix_kernel_phase(dev, cases):
             name = "wavefront_wide"
             k5 = k5 + (tb,)
             kern, plain = wavefront_wide, wavefront_wide_plain
-        err5 = compare(name, kern(*k5), plain(*k5))
+        walked5 = kern(*k5)
+        err5 = compare(name, walked5, plain(*k5))
+        need5 = (nbytes(k5[0]) + ng * (2 + 1 + 1 + 16 * tb // 8), walk_ops(walked5, tb))
         ms5 = median_ms(lambda: kern(*k5))
         plain5 = median_ms(lambda: plain(*k5), 3)
         log(f"K5 {name} {label}: equal, kernel {ms5:.4f} ms, twin {plain5:.4f} ms")
-        for kname, res in (("wavefront_fused", (err4, ms4, plain4)), (name, (err5, ms5, plain5))):
+        for kname, res in (("wavefront_fused", (err4, ms4, plain4, need4, None)),
+                           (name, (err5, ms5, plain5, need5, None))):
             if kname in results:  # keep the first shape's times, the worst error
                 res = (max(res[0], results[kname][0]),) + results[kname][1:]
             results[kname] = res
-        del regs, k5, given
+        del regs, k5, given, walked, walked5
     return results, all_streams
+
+
+def n_words_for(x) -> int:
+    """The encoder's stream buffer in words for raster x, as api.Encoder
+    sizes it."""
+    from qb3_tpu_torch import api
+
+    h, w, nb = x.shape
+    return api.stream_words(w, h, nb, api.DT_FROM_NP[x.dtype])
+
+
+def k8_phase(dev):
+    """Phase 3c: K8 against its twin at the wide shapes (FTL, Hilbert) and
+    u64 BASE."""
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.benchutil import WIDE_IMAGES, median_ms, wide_image
+    from qb3_tpu_torch.constants import HILBERT
+    from qb3_tpu_torch.ops.encode_cuda import (encode_pack_image, encode_pack_image_plain,
+                                               image_pack_args)
+    from qb3_tpu_torch.ops.encode_image import phase_a_image
+
+    res = None
+    for label, skipstep in [(k, True) for k in WIDE_IMAGES] + [("u64 1024x1024x1", False)]:
+        x = wide_image(label)
+        nb = x.shape[2]
+        zero = api.to_carrier(np.zeros(nb, x.dtype), dev)
+        o = phase_a_image(api.to_carrier(x, dev), zero, zero, HILBERT,
+                          tuple(api.default_cband(nb)), skipstep, 8 * x.itemsize)
+        tb = 8 * x.itemsize
+        args = image_pack_args(o, tb, n_words_for(x), HILBERT)
+        words, total, glen = encode_pack_image(*args)
+        pw, pt, pg = encode_pack_image_plain(*args)
+        used = (int(pt) + 31) // 32
+        err = compare("encode_pack_image", (words[:used], total, glen), (pw[:used], pt, pg))
+        ms = median_ms(lambda: encode_pack_image(*args))
+        plain = median_ms(lambda: encode_pack_image_plain(*args), 5)
+        ng, gkind = glen.numel(), args[2]
+        need = (x.nbytes + ng * (7 + 2) + stream_bytes(total) + nbytes(total),
+                16 * (int((gkind == 0).sum()) * (CODE_OPS + PLACE_OPS) * wide(tb)
+                      + int((gkind == 1).sum()) * PLACE_OPS) + ng * GROUP_OPS)
+        bms, by = bound(need)
+        log(f"K8 encode_pack_image {label} {'FTL' if skipstep else 'BASE'} groups "
+            f"{ng} max rung {int(o['rung'].max())}: equal, kernel {ms:.4f} ms, "
+            f"twin {plain:.4f} ms, bound {bms:.4f} ms by {by} ({need[0]} bytes, "
+            f"{need[1]} integer operations; the int64 carriers move "
+            f"{nbytes(*args[:5], glen) + stream_bytes(total)} bytes)")
+        res = (max(err, res[0]),) + res[1:] if res else (err, ms, plain, need, None)
+        del o, args, words, pw
+    return {"encode_pack_image": res}
 
 
 def fixture_phase(dev):
@@ -309,11 +452,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import qb3_tpu_torch as qt
     from qb3_tpu_torch import _build, api
-    from qb3_tpu_torch.benchutil import (HEADLINE_SHA256, headline_image,
-                                         host_seconds, sustained)
+    from qb3_tpu_torch.benchutil import (HEADLINE_SHA256, WIDE_IMAGES, WIDE_SHA256,
+                                         device_profile, headline_image, host_seconds,
+                                         sustained, wide_image)
     from qb3_tpu_torch.constants import HILBERT
     from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8
     from qb3_tpu_torch.ops.decode import decode_indexed_narrow, reconstruct, reconstruct_batch
+    from qb3_tpu_torch.ops.encode_cuda import encode_pack_image, image_pack_args
+    from qb3_tpu_torch.ops.encode_image import phase_a_image
     from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused
     from qb3_tpu_torch.ops.pack_cuda import extract_windows, pack_groups_chunked
     from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
@@ -345,6 +491,7 @@ def main() -> int:
     cases = ix_cases()
     ix_res, ix_streams = ix_kernel_phase(dev, cases)
     kres.update(ix_res)
+    kres.update(k8_phase(dev))
 
     log("# phase 4: golden bytes")
     fixture_phase(dev)
@@ -352,12 +499,18 @@ def main() -> int:
     sha = hashlib.sha256(stream).hexdigest()
     check(sha == HEADLINE_SHA256, f"headline sha256 {sha} != {HEADLINE_SHA256}")
     log(f"headline 512x512x3 u8 ic stream sha256 {sha}: matches qb3_tpu")
+    wide_imgs = {label: wide_image(label) for label in WIDE_IMAGES}
+    for label, x in wide_imgs.items():
+        sha = hashlib.sha256(qt.encode(x, index=True, device=dev)).hexdigest()
+        check(sha == WIDE_SHA256[label], f"{label} ix sha256 {sha} != {WIDE_SHA256[label]}")
+    log(f"wide ix streams ({', '.join(wide_imgs)}), through the image-layout encode: "
+        "sha256s match qb3_tpu")
 
     log("# phase 5: main paths")
     kernels = {"pack_groups_chunked": pack_groups_chunked,
                "extract_windows": extract_windows, "chunkwalk8": chunkwalk8,
                "wavefront_fused": wavefront_fused, "wavefront8": wavefront8,
-               "wavefront_wide": wavefront_wide}
+               "wavefront_wide": wavefront_wide, "encode_pack_image": encode_pack_image}
     ic_path = ("pack_groups_chunked", "extract_windows", "chunkwalk8")
     ix_path = ("pack_groups_chunked", "wavefront_fused", "wavefront8", "wavefront_wide")
     for fn in kernels.values():
@@ -411,9 +564,32 @@ def main() -> int:
     check(all(n > 0 for n in ix_launches.values()), "a kernel of the ix path was not launched")
     launches.update({k: v for k, v in ix_launches.items() if k not in launches})
 
+    # the public encode of the wide shapes (the image-layout encode): the
+    # "ix" streams are qb3_tpu's (phase 4's sha256s), both sidecars round-trip,
+    # through K8 and never K1
+    for fn in kernels.values():
+        fn.launches = 0
+    for label, x in wide_imgs.items():
+        for index in (True, "ic"):
+            s = qt.encode(x, index=index, device=dev)
+            if index is True:
+                check(hashlib.sha256(s).hexdigest() == WIDE_SHA256[label],
+                      f"wide {label}: ix stream differs from qb3_tpu's")
+            d = qt.Decoder(s, device=dev)
+            check(np.array_equal(d.read_data(), x)
+                  and d.decode_path == ("ix" if index is True else "ic"),
+                  f"wide {label} {index} round trip")
+    wide_launches = {name: kernels[name].launches
+                     for name in ("encode_pack_image", "pack_groups_chunked")}
+    log(f"launch counts on the wide encode path: {wide_launches}")
+    check(wide_launches["encode_pack_image"] > 0, "K8 was not launched on the wide path")
+    check(wide_launches["pack_groups_chunked"] == 0, "K1 ran on the wide path")
+    log(f"lossless wide: {', '.join(wide_imgs)} (ix and ic round trips)")
+    launches["encode_pack_image"] = wide_launches["encode_pack_image"]
+
     raw_mb = img.nbytes / 1e6
     zero = torch.zeros(3, dtype=torch.int64, device=dev)
-    n_words = (api.max_encoded_size(512, 512, 3, 0) + 3) // 4 + 2
+    n_words = api.stream_words(512, 512, 3, 0)
     img_dev = torch.from_numpy(img).to(dev)
     tiles_dev = torch.from_numpy(tiles).to(dev)
     zb = torch.zeros(BATCH, 3, dtype=torch.int64, device=dev)
@@ -483,11 +659,51 @@ def main() -> int:
             f"reconstruct {t_rec * 1e3:.4f} ms ({card})")
         del g
 
-    log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": kres[name][0], "ms": kres[name][1], "plain_ms": kres[name][2]}
-        for name in KERNELS]}))
+    for label, x in wide_imgs.items():
+        # device-resident encode, the block encode (phase A + K1) against the
+        # image-layout one (its phase A + K8) that the public encode takes:
+        # equal outputs; the int64 carrier on the card to the stream words
+        # on the card
+        tb = 8 * x.itemsize
+        nb = x.shape[2]
+        xd = api.to_carrier(x, dev)
+        zero = torch.zeros(nb, dtype=torch.int64, device=dev)
+        enc = (xd, zero, zero, HILBERT, tuple(api.default_cband(nb)), True, tb, n_words_for(x))
+        block, image = api.fast_encode(*enc), api.fused_encode(*enc)
+        used = (int(block[1]) + 31) // 32
+        check(torch.equal(block[0][:used], image[0][:used])
+              and all(torch.equal(a, b) for a, b in zip(block[1:], image[1:])),
+              f"wide {label}: the block and image-layout encodes disagree")
+        args = image_pack_args(phase_a_image(*enc[:-1]), tb, enc[-1], HILBERT)
+        paths = {"block": api.fast_encode, "image-layout": api.fused_encode}
+        times = {"block": [], "image-layout": []}
+        for name in ("block", "image-layout", "image-layout", "block"):  # in turns
+            times[name].append(sustained(lambda: paths[name](*enc), 20))
+        t_def, t_fus = (sum(times[k]) / 2 for k in paths)
+        t_pa = sustained(lambda: phase_a_image(*enc[:-1]), 20)
+        t_k8 = sustained(lambda: encode_pack_image(*args), 20)
+        mb = x.nbytes / 1e6
+        log(f"device encode {label}: block {mb / t_def:.2f} MB/s ({t_def * 1e3:.4f} ms), "
+            f"image-layout {mb / t_fus:.2f} MB/s ({t_fus * 1e3:.4f} ms; alone, phase A "
+            f"{t_pa * 1e3:.4f} ms and K8 {t_k8 * 1e3:.4f} ms); equal outputs ({card})")
+        for name, fn in paths.items():
+            p = device_profile(lambda fn=fn: fn(*enc))
+            pack = sum(v for k, v in p["per_op"].items()
+                       if "pack_groups_kernel" in k or "encode_pack_image_kernel" in k)
+            log(f"profile {name} encode {label}: wall {p['wall_ms']:.4f} ms, device busy "
+                f"{p['busy_ms']:.4f} ms (pack kernel {pack:.4f} ms), idle {p['idle']:.3f}, "
+                f"{p['ops']:.0f} device ops, top {p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
+        del xd, block, image, args
+
+    line = []
+    for name in KERNELS:
+        err, ms, plain, need, lib = kres[name]
+        bms, by = bound(need)
+        line.append({"name": name, "route": "cuda", "source": KERNELS[name][0],
+                     "replaces": KERNELS[name][1], "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by, "library_ms": lib})
+    log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,9 @@
 The PyTorch port of qb3_tpu: the same streams byte for byte, decoded to the
 same arrays.  It imports torch and numpy only, never jax or qb3_tpu.  Every
 entry point takes a ``device`` (default "cuda"); on a CUDA device the pack,
-the window copy, the "ic" chunk walk and the "ix" walks are hand-written
-CUDA kernels (csrc/), on the CPU their plain PyTorch twins.
+the window copy, the "ic" chunk walk, the "ix" walks and the image-layout
+encode's VLC + pack (u16/u32/u64) are hand-written CUDA kernels (csrc/),
+on the CPU their plain PyTorch twins.
 """
 
 from .api import Decoder, Encoder, decode, encode, max_encoded_size  # noqa: F401

@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "qb3_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _I32, _U64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64
 # C entry point -> argument types; every entry point returns cudaGetLastError()
 SIGNATURES = {
     "qb3_pack_groups": [_P, _P, _P, _I64, _I32, _I64, _I64, _P, _P],
@@ -35,6 +35,7 @@ SIGNATURES = {
     "qb3_wavefront_wide": [_P, _I64, _I32, _I32, _P, _P, _P, _P, _P],
     "qb3_wavefront_fused": [_P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _I64, _I32,
                             _P, _P, _P, _P, _P, _P, _P],
+    "qb3_encode_pack_image": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _U64, _I64, _P, _P],
 }
 
 

@@ -14,8 +14,8 @@ import torch
 
 from . import container
 from .api import (DT_FROM_NP, NP_FROM_DT, UNSIGNED, _fused_ix_params, default_cband,
-                  fast_encode, from_carrier, ic_inputs, max_encoded_size,
-                  not_ported, to_carrier)
+                  fast_encode, from_carrier, ic_inputs, not_ported, stream_words,
+                  to_carrier)
 from .constants import B, B2, HILBERT, ZCURVE, DType, Mode
 from .errors import QB3ShapeError
 from .ops.bitpack import words_to_bytes
@@ -54,7 +54,7 @@ def encode_tiles(imgs: np.ndarray, mode: int = Mode.FTL, coreband=None,
     zorder = mode == Mode.BASE_Z
     size = imgs.dtype.itemsize
     uns = imgs.view(UNSIGNED[size])
-    n_words = (max_encoded_size(w, h, nb, dt) + 3) // 4 + 2
+    n_words = stream_words(w, h, nb, dt)
     dev = torch.device(device)
     zero = torch.zeros(n, nb, dtype=torch.int64, device=dev)
     words, totals, _, _, glen, rung = fast_encode(

@@ -18,6 +18,23 @@ import torch
 # and re-derived from both packages by tests/test_torch_api.py
 HEADLINE_SHA256 = "0d9874e5145ee36edf488c1e5525407266c2f652f42903571313940e791b09d9"
 
+# the wide rasters of the bench rows ftl-u16, ftl-u16x8-landsat, ftl-u32 and
+# ftl-u64: label -> headline_image arguments (h, w, bands, seed, dtype)
+WIDE_IMAGES = {
+    "u16 1024x1024x1": (1024, 1024, 1, 7, np.uint16),
+    "u16 512x512x8": (512, 512, 8, 11, np.uint16),
+    "u32 1024x1024x1": (1024, 1024, 1, 12, np.uint32),
+    "u64 1024x1024x1": (1024, 1024, 1, 13, np.uint64),
+}
+# sha256 of encode(image, index=True) for each: computed with qb3_tpu.encode
+# and re-derived from both packages by tests/test_torch_encode_image.py
+WIDE_SHA256 = {
+    "u16 1024x1024x1": "7abfa90134a5146333831f981f61b4022ac93ebc547feb84f4436a266646c9ee",
+    "u16 512x512x8": "9ad041feddfb700843b9a2a3a38f1810b3ed5f0c36d637d02bc60345f89f2bdd",
+    "u32 1024x1024x1": "273285cc6bc624761bf777dbd1a010a835f2c49f2620f9a0e0dbc796bad4476a",
+    "u64 1024x1024x1": "e0ef5e78dd8bcc29955a92916f704b71c751dc0cc58413623e8e0311eea1d9e4",
+}
+
 
 def headline_image(h: int = 512, w: int = 512, bands: int = 3, seed: int = 42,
                    dtype=np.uint8) -> np.ndarray:
@@ -42,6 +59,12 @@ def headline_image(h: int = 512, w: int = 512, bands: int = 3, seed: int = 42,
     grain = rng.integers(0, 1 << k, size=out.shape, dtype=np.int64)
     return ((out.astype(np.uint64) << np.uint64(k))
             | grain.astype(np.uint64)).astype(dtype)
+
+
+def wide_image(label: str) -> np.ndarray:
+    """The WIDE_IMAGES raster of `label`."""
+    h, w, bands, seed, dtype = WIDE_IMAGES[label]
+    return headline_image(h, w, bands, seed=seed, dtype=dtype)
 
 
 def _require_cuda():
@@ -80,6 +103,40 @@ def median_ms(fn, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_profile(fn, iters: int = 10) -> dict:
+    """Where a call's device time goes: torch.profiler over ``iters`` calls
+    after a warm-up.  Returns per call: wall_ms (host clock to a
+    synchronize, profiler overhead included), busy_ms (the summed time of
+    the device's kernels and copies; on one stream they do not overlap),
+    idle (1 - busy / wall, an upper bound), ops (device operations), the
+    operation with the most device time (top, top_ms) and every operation's
+    device ms (per_op)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _require_cuda()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    per_name = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+            n += 1
+    if not per_name:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy = sum(per_name.values())
+    top = max(per_name, key=per_name.get)
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, ops=n / iters, top=top,
+                top_ms=per_name[top], per_op=per_name)
 
 
 def host_seconds(fn, iters: int = 5) -> float:

@@ -8,6 +8,8 @@
 
 #include <cstdint>
 
+#include "bitwriter.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------- K1
@@ -25,11 +27,11 @@ namespace {
 // and writes about a tenth of that, so the kernel moves ~12 bytes per
 // symbol and does a handful of integer operations on each.
 //
-// Design: one thread per group walks its S symbols in order, ORing the
-// code's bits into a 32-bit accumulator for the current output word and
-// flushing it with atomicOr when the walk moves to the next word.  Groups
-// may be shorter than 32 bits, so neighbouring groups share words; their
-// bits never overlap, so OR is exact (the property that makes the TPU
+// Design: one thread per group walks its S symbols in order through the
+// shared bit writer (bitwriter.cuh): a 32-bit accumulator for the current
+// output word, flushed with atomicOr when the walk moves to the next word.
+// Groups may be shorter than 32 bits, so neighbouring groups share words;
+// their bits never overlap, so OR is exact (the property that makes the TPU
 // kernel's byte sums exact).  The TPU kernel's slab tiling, bf16 one-hot
 // MXU placement and diagonal combine exist for the MXU and are not carried
 // over.  Words at or past n_words are dropped, like the JAX scatter.
@@ -41,29 +43,9 @@ __global__ void pack_groups_kernel(const uint64_t* __restrict__ codes,
                                    uint32_t* __restrict__ out) {
   const int64_t g = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (g >= ngroups) return;
-  uint32_t* tile_out = out + (g / groups_per_tile) * n_words;
-  int64_t p = goff[g];
-  int64_t cur = p >> 5;
-  uint32_t acc = 0;
-  for (int s = 0; s < S; ++s) {
-    uint64_t code = codes[g * S + s];
-    int len = lens[g * S + s];
-    while (len > 0) {
-      const int64_t wi = p >> 5;
-      const int sh = static_cast<int>(p & 31);
-      const int take = len < 32 - sh ? len : 32 - sh;
-      if (wi != cur) {
-        if (acc && cur < n_words) atomicOr(tile_out + cur, acc);
-        cur = wi;
-        acc = 0;
-      }
-      acc |= static_cast<uint32_t>(code & ((1ull << take) - 1)) << sh;
-      code >>= take;
-      len -= take;
-      p += take;
-    }
-  }
-  if (acc && cur < n_words) atomicOr(tile_out + cur, acc);
+  qb3::BitWriter bw(out + (g / groups_per_tile) * n_words, n_words, goff[g]);
+  for (int s = 0; s < S; ++s) bw.put(codes[g * S + s], lens[g * S + s]);
+  bw.flush();
 }
 
 // ---------------------------------------------------------------- K3

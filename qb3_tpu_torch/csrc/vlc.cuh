@@ -1,9 +1,11 @@
-// Shared QB3 decode primitives for the CUDA kernels of qb3_tpu_torch.
+// Shared QB3 VLC primitives for the CUDA kernels of qb3_tpu_torch.
 //
 // Ported from the JAX package's arithmetic decoders: _vlc32 / _vlc32w /
 // _vlc64 (qb3_tpu/ops/wavefront_pallas.py), _vlc_decode_arith, dsw_arith
-// and the step restore (qb3_tpu/ops/decode.py).  On a TPU these work on int32 lanes because
-// Mosaic has no 64-bit integers; here they take native unsigned words.
+// and the step restore (qb3_tpu/ops/decode.py), and from its encoder
+// _enc_pair (qb3_tpu/ops/encode_pallas.py).  On a TPU these work on int32
+// lanes because Mosaic has no 64-bit integers; here they take native
+// unsigned words.
 #pragma once
 
 #include <cstdint>
@@ -48,6 +50,27 @@ __device__ __forceinline__ uint64_t vlc64(uint64_t w, int rung, int* len) {
     v = v == a ? a + 1 : (v == a + 1 ? a : v);
   }
   return v;
+}
+
+// Group-context VLC encode of the mag-sign value `v` at `rung` (1..63), the
+// counterpart of _enc_pair (encode_pallas.py) and of value_codes_arith
+// (qb3_tpu_torch/ops/encode.py): the middle swap of the tabled rungs (rung
+// 1: 1<->2, rung 2: 3<->4, rungs 3..7: 2^r-1 <-> 2^r), then the base
+// 3-range code (QB3encode.h:132-141).  Returns the low 64 code bits and sets
+// *len up to 65: the rung-63 long form's bit 64 is value bit 62, which the
+// caller emits after the 64 bits returned.
+__device__ __forceinline__ uint64_t vlc_encode(uint64_t v, int rung, int* len) {
+  const int r = rung < 1 ? 1 : rung;
+  if (r <= 7) {
+    const uint64_t a = r == 1 ? 1ull : (r == 2 ? 3ull : (1ull << r) - 1);
+    v = v == a ? a + 1 : (v == a + 1 ? a : v);
+  }
+  const int top = static_cast<int>((v >> r) & 1ull);
+  const int nxt = static_cast<int>((v >> (r - 1)) & 1ull);
+  *len = r + top + (top | nxt);
+  if (top) return ((v ^ (1ull << r)) << 2) | 3ull;        // long: r + 2 bits
+  if (nxt) return ((v ^ (1ull << (r - 1))) << 2) | 1ull;  // nominal: r + 1
+  return v << 1;                                         // short: r
 }
 
 // BASE-mode step-bit restore of one decoded group (QB3decode.h:285-289):

@@ -1,6 +1,6 @@
 """The CUDA kernels K1 (pack), K2 (chunk walk), K3 (window copy), K4 (fused
-"ix" walk) and K5a / K5b (walks on gathered windows) of qb3_tpu_torch
-against their plain PyTorch twins, on the card.
+"ix" walk), K5a / K5b (walks on gathered windows) and K8 (fused image-layout
+VLC + pack) of qb3_tpu_torch against their plain PyTorch twins, on the card.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither jax nor qb3_tpu, so it also runs on a machine without JAX:
@@ -14,15 +14,19 @@ import torch
 
 import qb3_tpu_torch as qt
 from qb3_tpu_torch import container
-from qb3_tpu_torch.api import _fused_ix_params, ic_inputs, padded_words, to_carrier
+from qb3_tpu_torch.api import (_fused_ix_params, ic_inputs, padded_words, stream_words,
+                               to_carrier)
 from qb3_tpu_torch.batch import _flat_tile_layout
 from qb3_tpu_torch.benchutil import headline_image
-from qb3_tpu_torch.constants import HILBERT, TYPESIZES, Mode
+from qb3_tpu_torch.constants import HILBERT, TYPESIZES, ZCURVE, Mode
 from qb3_tpu_torch.ops import bitpack, pack_cuda
 from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8, chunkwalk8_plain
 from qb3_tpu_torch.ops.decode import ix_parse, ix_regs, payload_words
 from qb3_tpu_torch.ops.decode_chunked import decode_chunked, parse_ic
 from qb3_tpu_torch.ops.encode import encode_fast_blocks
+from qb3_tpu_torch.ops.encode_cuda import (encode_pack_image, encode_pack_image_plain,
+                                           image_pack_args)
+from qb3_tpu_torch.ops.encode_image import phase_a_image
 from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
@@ -230,3 +234,59 @@ def test_cuda_ix_roundtrip_equals_cpu(cuda, dtype):
     streams = qt.encode_tiles(tiles, index=True, device=cuda)
     assert streams == qt.encode_tiles(tiles, index=True, device="cpu")
     np.testing.assert_array_equal(qt.decode_tiles(streams, device=cuda), tiles)
+
+
+def _full_range_u64(shape, seed):
+    """Full-range u64 noise: blocks at rung 63, the 65-bit long code."""
+    return np.random.default_rng(seed).integers(0, 1 << 64, shape, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("dtype,shape,order,cband,skipstep", [
+    (np.uint16, (64, 96, 1), HILBERT, (0,), True),
+    (np.uint16, (20, 36, 3), HILBERT, (1, 1, 1), False),   # W/4 * C = 27 groups a row
+    (np.uint32, (32, 48, 4), ZCURVE, (1, 1, 1, 3), False),
+    (np.uint64, (48, 64, 1), ZCURVE, (0,), True),
+    (np.uint64, (16, 32, 2), HILBERT, (0, 1), False),      # full range: rung 63
+])
+def test_k8_matches_twin(cuda, dtype, shape, order, cband, skipstep):
+    if dtype == np.uint64 and not skipstep:
+        img = _full_range_u64(shape, seed=31)
+    else:
+        img = headline_image(*shape, seed=30, dtype=dtype)
+        img[::8, ::8] = np.iinfo(dtype).max  # high rungs beside the grain's low ones
+    h, w, nb = shape
+    tbits = 8 * np.dtype(dtype).itemsize
+    rng = np.random.default_rng(32)
+    prev = rng.integers(0, 1 << min(tbits, 63), nb, dtype=np.uint64).astype(dtype)
+    runbits = torch.from_numpy(rng.integers(0, tbits // 2, nb).astype(np.int32)).to(cuda)
+    o = phase_a_image(to_carrier(img, cuda), to_carrier(prev, cuda), runbits, order, cband,
+                      skipstep, tbits)
+    args = image_pack_args(o, tbits, stream_words(w, h, nb, {16: 2, 32: 4, 64: 6}[tbits]), order)
+    before = encode_pack_image.launches
+    got = encode_pack_image(*args)
+    torch.cuda.synchronize()
+    assert encode_pack_image.launches == before + 1
+    want = encode_pack_image_plain(*args)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    if not skipstep and dtype == np.uint64:
+        assert int(o["rung"].max()) == 63
+
+
+@pytest.mark.parametrize("dtype,mode", [(np.uint16, Mode.FTL), (np.uint32, Mode.BASE_Z),
+                                        (np.uint64, Mode.BASE_H)])
+def test_public_wide_encode_goes_through_k8(cuda, monkeypatch, dtype, mode):
+    """The public encode of a wide image on the card: the block encode's
+    bytes (phase A + K1), through K8 and not K1."""
+    img = headline_image(64, 52, 3, seed=33, dtype=dtype)
+    with monkeypatch.context() as m:
+        m.setattr(qt.api, "takes_fused", lambda *shape: False)
+        want = {index: qt.encode(img, mode=mode, index=index, device=cuda)
+                for index in (False, True, "ic")}
+    k1, k8 = pack_cuda.pack_groups_chunked.launches, encode_pack_image.launches
+    for index, stream in want.items():
+        assert qt.encode(img, mode=mode, index=index, device=cuda) == stream
+        if index:  # a stream without a sidecar decodes by the walk, not ported
+            np.testing.assert_array_equal(qt.decode(stream, device=cuda)[0], img)
+    assert encode_pack_image.launches == k8 + 3
+    assert pack_cuda.pack_groups_chunked.launches == k1
