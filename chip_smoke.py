@@ -7,20 +7,25 @@ The main paths: FTL encode of a 512x512x3 u8 raster with the self-contained
 "ic" sidecar, then decode driven by that sidecar, one image at a time and as
 a batch of 128 tiles; the "ix" sidecar encode and decode at the shapes of
 the bench rows it serves (u8 512x512x3 single and 128 tiles, u16
-1024x1024x1, u16 512x512x8, u32 and u64 1024x1024x1, u64 8 tiles); and the
+1024x1024x1, u16 512x512x8, u32 and u64 1024x1024x1, u64 8 tiles); the
 image-layout encode that the public encode takes for u16/u32/u64 images, at
-the four wide single shapes.  Phases, each printed on earlier lines:
+the four wide single shapes; and the decode of streams without a sidecar
+(the default encode's), by the serial walk on the host and K7 + K5 on the
+card, at the headline and wide shapes.  Phases, each printed on earlier
+lines:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source;
   3. K1 (pack), K3 (window copy) and K2 (chunk walk) at the "ic" path's
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
-     + pack) at the wide shapes, FTL and BASE, each against its plain
-     PyTorch twin: exact equality, median times;
+     + pack) at the wide shapes, FTL and BASE, then K7 (window gather) at
+     the walk's u8 512x512x3 and u64 1024x1024x1 windows, each against its
+     plain PyTorch twin: exact equality, median times;
   4. golden bytes: the committed web fixtures (streams pinned to the C
-     reference) re-encoded by the port, the headline stream's sha256 and
-     the four wide "ix" streams' sha256s (through the image-layout encode);
+     reference) re-encoded by the port and every one that is not best mode
+     decoded to its raw bytes, the headline stream's sha256 and the four
+     wide "ix" streams' sha256s (through the image-layout encode);
   5. the main paths through the public API with the launch counters reset:
      "ic" single image, 128-tile batch, u16 1024x1024x1 and u64 256x256x1
      round trips, "ix" round trips at every "ix" shape and the K5 branch of
@@ -29,7 +34,11 @@ the four wide single shapes.  Phases, each printed on earlier lines:
      MB/s, the "ix" decode's device time split into K4 and reconstruct, and
      at the wide shapes the block encode (phase A + K1) against the
      image-layout one (equal outputs, device MB/s, the latter split into
-     phase A and K8).
+     phase A and K8); the decode without a sidecar (the C++ walk, K7, K5)
+     at the headline u8 shape (FTL, BASE_Z and RLE_H) and the four wide
+     shapes, its split into host walk, upload, K7, K5 and reconstruct, a
+     device profile, and host-to-host MB/s beside the "ic" and "ix" decodes
+     of the same image.
 
 Launch counts are set to 0 just before each main path and read just after;
 each kernel's count in the result is from the path that runs it.  Any
@@ -62,6 +71,7 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
     "wavefront_fused": ("qb3_tpu_torch/csrc/fusedwin.cu", "qb3_tpu/ops/fusedwin_pallas.py:423"),
     "wavefront8": ("qb3_tpu_torch/csrc/wavefront.cu", "qb3_tpu/ops/wavefront_pallas.py:129"),
     "wavefront_wide": ("qb3_tpu_torch/csrc/wavefront.cu", "qb3_tpu/ops/wavefront_pallas.py:284"),
+    "gather_slabs": ("qb3_tpu_torch/csrc/gather.cu", "qb3_tpu/ops/pack_pallas.py:339"),
     "encode_pack_image": ("qb3_tpu_torch/csrc/encode_image.cu",
                           "qb3_tpu/ops/encode_pallas.py:322"),
 }
@@ -407,8 +417,63 @@ def k8_phase(dev):
     return {"encode_pack_image": res}
 
 
+def walk_case(x, mode, dev):
+    """A stream without a sidecar of raster x, the host walk of its payload
+    and decode_groups' device inputs."""
+    from qb3_tpu_torch import api, container, rle
+    from qb3_tpu_torch.constants import needs_rle
+
+    stream = api.encode(x, mode=mode, device=dev)
+    info = container.parse_headers(stream)
+    check(info.index is None and info.index_chunked is None, "a walk stream has a sidecar")
+    data = stream[info.data_offset:]
+    if needs_rle(info.mode):
+        data = rle.rle0_decode(data, rle.rle0_decoded_size(data))
+    h, w, nb = x.shape
+    nblocks = (h // 4) * (w // 4)
+    meta, path = api.walk_offsets(data, nblocks, nb, x.itemsize, info.mode)
+    return dict(stream=stream, info=info, data=data, meta=meta, path=path, nblocks=nblocks,
+                inp=api.walk_inputs(meta, api.padded_words(data), 8 * x.itemsize, dev))
+
+
+def k7_phase(dev, img, u64):
+    """Phase 3d: K7 against its twin at the windows the walk decode gathers:
+    the headline u8 tile and u64 1024x1024x1."""
+    import torch
+
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.constants import Mode
+    from qb3_tpu_torch.ops.gather_cuda import gather_slabs, gather_slabs_plain
+
+    res = None
+    for label, x in (("u8 512x512x3", img), ("u64 1024x1024x1", u64)):
+        a = walk_case(x, Mode.FTL, dev)["inp"]
+        words32, base, W, R = a["words32"], a["base"], a["nreg"], a["R"]
+        got = gather_slabs(words32, base, W, R)
+        err = compare("gather_slabs", got, gather_slabs_plain(words32, base, W))
+        ms = median_ms(lambda: gather_slabs(words32, base, W, R))
+        plain = median_ms(lambda: gather_slabs_plain(words32, base, W), 5)
+        # yardstick: torch.take on the zero-padded stream, index built untimed
+        padded = torch.cat([words32, words32.new_zeros(W)])
+        idx = (base.to(torch.int64)[:, None] + torch.arange(W, device=dev)).clamp(
+            0, padded.numel() - 1)
+        compare("gather_slabs", torch.take(padded, idx), got)
+        lib = median_ms(lambda: torch.take(padded, idx))
+        ng, n32 = base.numel(), words32.numel()
+        lo, hi = int(base.min()), min(int(base.max()) + W, n32)
+        need = (4 * ng + 4 * max(hi - lo, 0) + nbytes(got), 2 * got.numel())
+        bms, by = bound(need)
+        log(f"K7 gather_slabs {label} groups {ng} x {W} words, span R {R}: equal, kernel "
+            f"{ms:.4f} ms, twin {plain:.4f} ms, torch.take {lib:.4f} ms, bound {bms:.5f} ms "
+            f"by {by} ({need[0]} bytes)")
+        res = (max(err, res[0]),) + res[1:] if res else (err, ms, plain, need, lib)
+        del got, padded, idx
+    return {"gather_slabs": res}
+
+
 def fixture_phase(dev):
-    """Phase 4a: the web fixtures, re-encoded by the port."""
+    """Phase 4a: the web fixtures, re-encoded by the port, and every one that
+    is not best mode decoded to its raw bytes."""
     from qb3_tpu_torch import api, container
     from qb3_tpu_torch.constants import Mode, is_best_mode
 
@@ -416,7 +481,7 @@ def fixture_phase(dev):
         text = f.read()
     cases = json.loads(text[text.index("["): text.rindex("]") + 1])
     check(len(cases) >= 20, f"only {len(cases)} web fixtures")
-    matched = 0
+    matched = decoded = 0
     for c in cases:
         stream = base64.b64decode(c["stream"])
         info = container.parse_headers(stream)
@@ -426,6 +491,10 @@ def fixture_phase(dev):
             continue
         raw = np.frombuffer(base64.b64decode(c["raw"]), np.dtype(c["dtype"]))
         raw = raw.reshape(c["shape"])
+        dec = api.Decoder(stream, device=dev)
+        check(dec.read_data().tobytes() == raw.tobytes(), f"fixture {c['name']}: decode differs")
+        decoded += 1
+        log(f"fixture {c['name']}: port decode ({dec.decode_path}) equals raw")
         mode = Mode.FTL if info.mode == Mode.STORED else info.mode
         got = api.encode(raw, mode=mode, quanta=info.quanta, coreband=info.cband,
                          index="ic" if info.index_chunked else False, device=dev)
@@ -435,11 +504,99 @@ def fixture_phase(dev):
                 "re-quantize to the stream's values")
             continue
         matched += 1
-        if info.index_chunked:
-            dec, _ = api.decode(stream, device=dev)
-            check(dec.tobytes() == raw.tobytes(), f"fixture {c['name']}: decode differs")
-            log(f"fixture {c['name']}: port decode equals raw")
-    log(f"fixtures: {matched} of {len(cases)} streams re-encoded byte-exact")
+    log(f"fixtures: {matched} of {len(cases)} streams re-encoded byte-exact, {decoded} "
+        "decoded to their raw bytes")
+    check(decoded == 17, f"{decoded} fixtures decoded, 17 are not best mode")
+
+
+def walk_phase(dev, card, img, wide_imgs, kernels, ic_stream, ix_stream):
+    """Phase 5, the decode without a sidecar: the default encode's streams
+    through the public decode (the C++ walk on the host, then K7 and K5 on
+    the card) with the launch counts set to 0 just before and read just
+    after; then each stream's decode split into its stages, host-to-host
+    MB/s beside the "ic" and "ix" decodes of the same image, and a device
+    profile.  Returns the walk path's launch counts."""
+    import torch
+
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import api, container
+    from qb3_tpu_torch.benchutil import device_profile, host_seconds, sustained
+    from qb3_tpu_torch.constants import HILBERT, Mode
+    from qb3_tpu_torch.ops.decode import decode_groups, reconstruct
+    from qb3_tpu_torch.ops.gather_cuda import gather_slabs
+    from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
+
+    nodata = img.copy()
+    nodata[64:320, 96:448] = 0  # a no-data area: zero runs the RLE0 pass takes
+    walk_cases = {"u8 512x512x3 FTL": (img, Mode.FTL), "u8 512x512x3 BASE_Z": (img, Mode.BASE_Z),
+                  "u8 512x512x3 no-data RLE_H": (nodata, Mode.RLE_H),
+                  **{label: (x, Mode.FTL) for label, x in wide_imgs.items()}}
+    walk_path = ("gather_slabs", "wavefront8", "wavefront_wide")
+    for fn in kernels.values():
+        fn.launches = 0
+    walk_streams = {}
+    for label, (x, mode) in walk_cases.items():
+        s = qt.encode(x, mode=mode, device=dev)
+        check(container.parse_headers(s).mode == mode, f"walk {label}: stream mode")
+        d = qt.Decoder(s, device=dev)
+        check(np.array_equal(d.read_data(), x), f"walk {label} round trip")
+        check(d.decode_path == "native-walk", f"walk {label}: decode path {d.decode_path}")
+        walk_streams[label] = s
+        log(f"lossless walk: {label} (ratio {len(s) / x.nbytes:.4f}, {d.decode_path})")
+    walk_launches = {name: kernels[name].launches for name in walk_path}
+    log(f"launch counts on the walk path: {walk_launches}")
+    check(all(n > 0 for n in walk_launches.values()), "a kernel of the walk path was not launched")
+
+    for label, (x, mode) in walk_cases.items():
+        # the walk decode, host to host, split into its stages: the C++ walk
+        # and the upload on the host clock, K7, K5 and reconstruct on the card
+        c = walk_case(x, mode, dev)
+        check(c["stream"] == walk_streams[label], f"walk {label}: stream differs")
+        a, tb, (h, w, nb) = c["inp"], 8 * x.itemsize, x.shape
+        info = c["info"]
+        kw = dict(tbits=tb, apply_step=info.mode != Mode.FTL)
+        words = api.padded_words(c["data"])
+
+        def upload(c=c, words=words, tb=tb):
+            api.walk_inputs(c["meta"], words, tb, dev)
+            torch.cuda.synchronize()
+
+        regs = gather_slabs(a["words32"], a["base"], a["nreg"], a["R"])
+        k5 = (regs, a["off"], a["rung"], a["kind"], a["nreg"])
+        g = decode_groups(**a, **kw)
+        zero = torch.zeros(nb, dtype=torch.int64, device=dev)
+        rec = (g.reshape(c["nblocks"], nb, 16), zero, h, w, nb, info.order or HILBERT,
+               tuple(info.cband), tb)
+        t = {"host walk": host_seconds(lambda c=c, x=x: api.walk_offsets(
+                 c["data"], c["nblocks"], x.shape[2], x.itemsize, c["info"].mode)),
+             "upload": host_seconds(upload),
+             "K7": sustained(lambda a=a: gather_slabs(a["words32"], a["base"], a["nreg"],
+                                                      a["R"]), 20),
+             "K5": sustained(lambda k5=k5, tb=tb: wavefront8(*k5) if tb == 8
+                             else wavefront_wide(*k5, tb), 20),
+             "reconstruct": sustained(lambda rec=rec: reconstruct(*rec), 20)}
+        t_all = host_seconds(lambda s=c["stream"]: qt.decode(s, device=dev))
+        log(f"walk decode {label}, host to host: {x.nbytes / 1e6 / t_all:.2f} MB/s, "
+            f"{t_all * 1e3:.4f} ms; " + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in t.items())
+            + f"; the rest {(t_all - sum(t.values())) * 1e3:.4f} ms ({card})")
+        del a, regs, k5, g, rec
+
+    # host to host, one u8 512x512x3 tile, the same image without a sidecar,
+    # with "ic" and with "ix", in turns
+    same = {"walk": walk_streams["u8 512x512x3 FTL"], "ic": ic_stream, "ix": ix_stream}
+    h2h = {k: [] for k in same}
+    for k in ("walk", "ic", "ix", "ix", "ic", "walk"):
+        h2h[k].append(host_seconds(lambda k=k: qt.decode(same[k], device=dev)))
+    log("host-to-host decode u8 512x512x3, in turns: " + ", ".join(
+        f"{k} {img.nbytes / 1e6 * 2 / sum(v):.2f} MB/s" for k, v in h2h.items()) + f" ({card})")
+    p = device_profile(lambda: qt.decode(same["walk"], device=dev))
+    kms = {k: sum(v for op, v in p["per_op"].items() if k in op)
+           for k in ("gather_slabs_kernel", "wavefront8_kernel")}
+    log(f"profile walk decode u8 512x512x3: wall {p['wall_ms']:.4f} ms, device busy "
+        f"{p['busy_ms']:.4f} ms (K7 {kms['gather_slabs_kernel']:.4f} ms, K5a "
+        f"{kms['wavefront8_kernel']:.4f} ms), idle {p['idle']:.3f}, {p['ops']:.0f} device "
+        f"ops, top {p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
+    return walk_launches
 
 
 def main() -> int:
@@ -461,6 +618,7 @@ def main() -> int:
     from qb3_tpu_torch.ops.encode_cuda import encode_pack_image, image_pack_args
     from qb3_tpu_torch.ops.encode_image import phase_a_image
     from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused
+    from qb3_tpu_torch.ops.gather_cuda import gather_slabs
     from qb3_tpu_torch.ops.pack_cuda import extract_windows, pack_groups_chunked
     from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
 
@@ -492,6 +650,7 @@ def main() -> int:
     ix_res, ix_streams = ix_kernel_phase(dev, cases)
     kres.update(ix_res)
     kres.update(k8_phase(dev))
+    kres.update(k7_phase(dev, img, wide_image("u64 1024x1024x1")))
 
     log("# phase 4: golden bytes")
     fixture_phase(dev)
@@ -510,7 +669,8 @@ def main() -> int:
     kernels = {"pack_groups_chunked": pack_groups_chunked,
                "extract_windows": extract_windows, "chunkwalk8": chunkwalk8,
                "wavefront_fused": wavefront_fused, "wavefront8": wavefront8,
-               "wavefront_wide": wavefront_wide, "encode_pack_image": encode_pack_image}
+               "wavefront_wide": wavefront_wide, "gather_slabs": gather_slabs,
+               "encode_pack_image": encode_pack_image}
     ic_path = ("pack_groups_chunked", "extract_windows", "chunkwalk8")
     ix_path = ("pack_groups_chunked", "wavefront_fused", "wavefront8", "wavefront_wide")
     for fn in kernels.values():
@@ -586,6 +746,7 @@ def main() -> int:
     check(wide_launches["pack_groups_chunked"] == 0, "K1 ran on the wide path")
     log(f"lossless wide: {', '.join(wide_imgs)} (ix and ic round trips)")
     launches["encode_pack_image"] = wide_launches["encode_pack_image"]
+
 
     raw_mb = img.nbytes / 1e6
     zero = torch.zeros(3, dtype=torch.int64, device=dev)
@@ -694,6 +855,9 @@ def main() -> int:
                 f"{p['busy_ms']:.4f} ms (pack kernel {pack:.4f} ms), idle {p['idle']:.3f}, "
                 f"{p['ops']:.0f} device ops, top {p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
         del xd, block, image, args
+
+    launches["gather_slabs"] = walk_phase(dev, card, img, wide_imgs, kernels, stream,
+                                          ix_streams["u8 512x512x3"][0])["gather_slabs"]
 
     line = []
     for name in KERNELS:

@@ -36,6 +36,7 @@ SIGNATURES = {
     "qb3_wavefront_fused": [_P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _I64, _I32,
                             _P, _P, _P, _P, _P, _P, _P],
     "qb3_encode_pack_image": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _U64, _I64, _P, _P],
+    "qb3_gather_slabs": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
 }
 
 
@@ -50,17 +51,24 @@ def _nvcc() -> str:
     return found
 
 
+def lib_path(stem: str, flags: list[str], paths: list[str]) -> str:
+    """build/qb3_tpu_torch/lib<stem>_<hash>.so, the hash taken over the
+    compiler flags and the named sources."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
 def build() -> str:
     """Compile csrc/*.cu unless a library for these sources exists; returns
     its path.  Each source compiles in its own nvcc process, all at once,
     then one link.  The compilers' report (ptxas registers and spills) is
     kept beside the library as <library>.log."""
     sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(SRC_DIR, "*.cu*"))):
-        with open(path, "rb") as f:
-            h.update(os.path.basename(path).encode() + f.read())
-    lib = os.path.join(BUILD_DIR, f"libqb3_tpu_torch_{h.hexdigest()[:16]}.so")
+    lib = lib_path("qb3_tpu_torch", NVCC_FLAGS,
+                   sorted(glob.glob(os.path.join(SRC_DIR, "*.cu*"))))
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -16,9 +16,11 @@ multiples of 4 take the image-layout phase A (ops/encode_image.py) and K8
 
 Slices covered: FTL, BASE_H and BASE_Z (and their RLE forms) with no
 sidecar, the self-contained "ic" sidecar or the "ix" sidecar (per-group bit
-lengths); the Decoder decodes stored, "ic" and "ix" streams.  Everything
-else raises NotImplementedError naming the ROADMAP.md item that ports it;
-nothing runs on another device instead.
+lengths); the Decoder decodes stored, "ic" and "ix" streams, and streams
+without a usable sidecar through the serial walk on the host (native.py, or
+offsets.py where the C++ walk cannot be built), K7 and K5 on the device.
+Everything else (best mode) raises NotImplementedError naming the
+ROADMAP.md item that ports it; nothing runs on another device instead.
 """
 
 from __future__ import annotations
@@ -45,13 +47,16 @@ from .constants import (
 from .errors import QB3DataError, QB3Error, QB3HeaderError, QB3ShapeError
 from .ops.bitpack import group_bits_bound, pack_groups_auto, words_to_bytes
 from .ops.chunkwalk_cuda import ic_walk_params
-from .ops.decode import _NREG_IX, decode_indexed_narrow, payload_words, reconstruct
+from .offsets import KIND_BITS, parse_offsets
+from .ops.decode import (_NREG_IX, K5_KIND, decode_groups, decode_indexed_narrow,
+                         payload_words, reconstruct)
 from .ops.decode_chunked import (IC_DEFAULT_K, chunk_spans, decode_chunked_auto,
                                  pack_ic, parse_ic)
 from .ops.encode import encode_fast_blocks
 from .ops.encode_cuda import encode_pack_image, image_pack_args
 from .ops.encode_image import phase_a_image
 from .ops.fusedwin_cuda import ix_window_R
+from .ops.gather_cuda import gather_span
 
 NP_FROM_DT = {
     DType.U8: np.uint8, DType.I8: np.int8, DType.U16: np.uint16, DType.I16: np.int16,
@@ -64,8 +69,6 @@ _TORCH_SIGNED = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _NP_SIGNED = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 
 _NOT_PORTED = {
-    "walk": "ROADMAP.md Queue 1 item 10 (slice 2: decode without a sidecar, "
-            "the serial walk)",
     "best": "ROADMAP.md Queue 1 item 12 (slice 4: best mode, ib and ic-best)",
 }
 
@@ -483,13 +486,48 @@ def _fused_ix_params(glens: np.ndarray, tbits: int, tile_words32: int = 0):
     return nreg, R
 
 
+def walk_offsets(data: bytes, nblocks: int, nb: int, tsize: int, mode: int):
+    """The serial walk of a payload -> (offsets.parse_offsets' result,
+    "native-walk" or "python-walk"): the C++ walk where its library loads,
+    else the Python one, as qb3_tpu picks."""
+    from . import native
+
+    if native.available():
+        return (native.parse_offsets_native(data, nblocks, nb, tsize, mode == Mode.FTL),
+                "native-walk")
+    return parse_offsets(data, nblocks, nb, tsize, mode), "python-walk"
+
+
+def walk_inputs(meta: dict, words: np.ndarray, tbits: int, device) -> dict:
+    """decode_groups' arguments from a walk's result: the padded stream
+    words (padded_words), and each group's window word, bit within it, rung
+    and K5 kind, uploaded in one (4, ngroups) int32 copy; nreg and K7's span
+    R computed here.  A walk that met best-mode group codes (CF, CF0 or IDX:
+    a damaged BASE stream can) raises NotImplementedError."""
+    kind = meta["kind"].reshape(-1)
+    if kind.size and int(kind.max()) > KIND_BITS:
+        raise not_ported("best")
+    val_pos = meta["val_pos"].reshape(-1)
+    words32 = words.view(np.int32)
+    # a window at or past the stream's end reads zeros wherever it starts,
+    # so the word index is kept within int32
+    base = np.minimum(val_pos >> 5, words32.size)
+    nreg = _NREG_IX[tbits]
+    host = np.stack([base, val_pos & 31, meta["vrung"].reshape(-1), K5_KIND[kind]])
+    t = torch.from_numpy(host.astype(np.int32)).to(device)
+    return dict(words32=torch.from_numpy(words32).to(device), base=t[0], off=t[1],
+                rung=t[2], kind=t[3], nreg=nreg, R=gather_span(base, nreg))
+
+
 class Decoder:
     """Mirror of the 3-stage decsp reader (QB3decode.cpp:130-264); the
     decode runs on `device`.
 
     After read_data, `decode_path` records which decode engine ran
-    ("stored", "ic" or "ix"); `failed` mirrors the reference's decode
-    failure flag when read_data(partial=True) returned best-effort output.
+    ("stored", "ic", "ix", or for streams without a usable sidecar
+    "native-walk" or "python-walk", as in qb3_tpu); `failed` mirrors the
+    reference's decode failure flag when read_data(partial=True) returned
+    best-effort output.
     """
 
     def __init__(self, stream: bytes, device="cuda"):
@@ -569,6 +607,7 @@ class Decoder:
         order, cband = info.order or HILBERT, tuple(info.cband)
         apply_step = info.mode != Mode.FTL
         # like qb3_tpu, RLE-wrapped streams (not a fast mode) take the walk
+        # whatever sidecar they carry
         fast = is_fast_mode(info.mode)
         if info.index_chunked is not None and fast:
             meta = parse_ic(info.index_chunked, nblocks, nb)
@@ -584,17 +623,24 @@ class Decoder:
             cand = np.frombuffer(info.index, dtype="<u2")
             if cand.size == nblocks * nb and int(cand.astype(np.int64).sum()) < 1 << 31:
                 glens = cand.astype(np.int32)
-        if glens is None:
-            raise not_ported("walk")
-        nreg, R = _fused_ix_params(glens, tbits)
-        words32 = torch.from_numpy(padded_words(data).view(np.int32)).to(self.device)
-        g = decode_indexed_narrow(words32, torch.from_numpy(glens).to(self.device),
-                                  nblocks, nb, apply_step, tbits, nreg=nreg, fused=R)
+        meta = None
+        if glens is not None:
+            nreg, R = _fused_ix_params(glens, tbits)
+            words32 = torch.from_numpy(padded_words(data).view(np.int32)).to(self.device)
+            g = decode_indexed_narrow(words32, torch.from_numpy(glens).to(self.device),
+                                      nblocks, nb, apply_step, tbits, nreg=nreg, fused=R)
+            self.decode_path, end_pos = "ix", int(glens.sum())
+        else:
+            meta, path = walk_offsets(data, nblocks, nb, tbits // 8, info.mode)
+            inp = walk_inputs(meta, padded_words(data), tbits, self.device)
+            g = decode_groups(**inp, tbits=tbits, apply_step=apply_step)
+            self.decode_path, end_pos = path, meta["end_pos"]
         zero = torch.zeros(nb, dtype=torch.int64, device=g.device)
         img, _ = reconstruct(g.reshape(nblocks, nb, B2), zero, h, w, nb, order, cband, tbits)
-        self.decode_path = "ix"
-        return self._end_check(from_carrier(img, tbits // 8),
-                               len(data) * 8 - int(glens.sum()))
+        img = from_carrier(img, tbits // 8)
+        if meta is not None and meta["failed"]:
+            raise QB3DataError(f"corrupt stream (group {meta['failed_group']})", partial=img)
+        return self._end_check(img, len(data) * 8 - end_pos)
 
     def _end_check(self, img: np.ndarray, leftover: int) -> np.ndarray:
         """The reference end-of-stream rule: >7 bits of extra input fail

@@ -1,11 +1,13 @@
-"""Value decoding primitives, the "ix" sidecar decode and image
-reconstruction.
+"""Value decoding primitives, the "ix" sidecar decode, the decode of groups
+located by the serial walk, and image reconstruction.
 
-PyTorch counterpart of qb3_tpu/ops/decode.py without its sidecar-less
-paths: the arithmetic codeswitch and group-VLC decoders, the "ix" decode
+PyTorch counterpart of qb3_tpu/ops/decode.py without its best-mode kinds:
+the arithmetic codeswitch and group-VLC decoders, the "ix" decode
 (decode_indexed_narrow: K4, or gathered windows and K5, with the XLA walk's
-formulation as their twins' body), and the step from decoded mag-sign
-groups to the image — the per-band prefix-sum un-delta
+formulation as their twins' body), the decode of fast-mode groups that the
+serial walk located (decode_groups: K7 gathers the windows, K5 walks them),
+and the step from decoded mag-sign groups to the image — the per-band
+prefix-sum un-delta
 (QB3decode.h:717-722), the inverse scan, and the band-delta add pass
 (QB3decode.h:729-737).  Values ride in int64 carriers (bitutils.py);
 int64 sums wrap like uint64, so the un-delta needs none of the JAX
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..constants import B, B2, curve_offsets
+from ..offsets import KIND_BITS, KIND_NORMAL, KIND_ZERO
 from .bitutils import M32, peek64, smag, srl, step_flip_index, words_u32, words_u64, wrap
 from .encode import block_origins
 
@@ -108,9 +111,11 @@ def window64(regs, o):
 _NREG_IX = {8: 8, 16: 12, 32: 20, 64: 36}  # window words: worst group, any phase
 _GMAX_IX = {8: 150, 16: 280, 32: 540, 64: 1056}  # longest group in bits
 
-
-# group kinds of decode_groups' metadata (qb3_tpu/offsets.py)
-KIND_NORMAL, KIND_ZERO, KIND_BITS = 0, 1, 2
+# K5's kind codes (1 group-coded, 2 literal bits, 0 all zero), indexed by
+# the walk's kind (offsets.KIND_NORMAL, KIND_ZERO, KIND_BITS): the one place
+# where the two codes meet
+K5_KIND = np.array([{KIND_NORMAL: 1, KIND_ZERO: 0, KIND_BITS: 2}[k] for k in range(3)],
+                   np.int32)
 
 
 def indexed_meta(words64, glens, nblocks: int, nbands: int, ubits: int):
@@ -262,6 +267,33 @@ def decode_indexed_narrow(words32, glens, nblocks: int, nbands: int,
     else:
         g = wavefront_wide(*args, tbits)
     return step_restore(g, rung, kind == 1) if apply_step else g
+
+
+def decode_groups(words32, base, off, rung, kind, nreg: int, R: int, tbits: int,
+                  apply_step: bool):
+    """The decode of fast-mode groups that the serial walk located ->
+    (ngroups, B2) int64 mag-sign values.
+
+    Counterpart of qb3_tpu's decode_groups_fused (u8/u16) and decode_groups
+    (u32/u64) for the kinds NORMAL, ZERO and BITS.  words32 (n32,) int32
+    stream words; base (ngroups,) int32 each group's window word (its first
+    value bit >> 5), off the bit within it (& 31), rung and kind (K5's codes,
+    K5_KIND) (ngroups,) int32; nreg window words per group, enough for the
+    longest group from any bit phase (_NREG_IX), so no value reads past its
+    window; R the words each K7 block stages (gather_span).  K7 gathers the
+    windows (zero past the stream), K5a (u8) or K5b walks them, and BASE
+    modes restore the step bit.  Each wrapper runs its kernel on a CUDA
+    tensor and its plain twin on a CPU tensor.
+    """
+    from .gather_cuda import gather_slabs
+    from .wavefront_cuda import wavefront8, wavefront_wide
+
+    regs = gather_slabs(words32, base, nreg, R)
+    if tbits == 8:
+        g = wavefront8(regs, off, rung, kind, nreg).to(torch.int64) & M32
+    else:
+        g = wavefront_wide(regs, off, rung, kind, nreg, tbits)
+    return step_restore(g, rung.to(torch.int64), kind == 1) if apply_step else g
 
 
 def _undelta_cumsum_blocks(s):

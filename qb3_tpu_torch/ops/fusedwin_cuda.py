@@ -17,6 +17,7 @@ import torch
 
 from ..constants import B2
 from .decode import ix_parse, ix_regs, ix_walk, step_restore
+from .gather_cuda import gather_span
 from .pack_cuda import on_cpu, require, stream_ptr
 
 FUSED_G = 128  # groups per K4 block (csrc/fusedwin.cu kThreads)
@@ -28,12 +29,7 @@ def ix_window_R(goff: np.ndarray, nreg: int) -> int:
     base word, rounded down to 4, through the last word any of its groups'
     windows reads; capped at FUSED_MAX_R (words past the span are read from
     the stream, so R moves speed, never values)."""
-    base = np.asarray(goff, np.int64) >> 5
-    if base.size == 0:
-        return 4
-    starts = np.arange(0, base.size, FUSED_G)
-    span = np.maximum.reduceat(base, starts) - (base[starts] & ~3) + nreg
-    return int(min(max(-(-int(span.max()) // 4) * 4, 4), FUSED_MAX_R))
+    return gather_span(np.asarray(goff, np.int64) >> 5, nreg, FUSED_G, FUSED_MAX_R)
 
 
 def wavefront_fused_plain(words32, goff, nreg: int, tbits: int,

@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (pack), K2 (chunk walk), K3 (window copy), K4 (fused
-"ix" walk), K5a / K5b (walks on gathered windows) and K8 (fused image-layout
-VLC + pack) of qb3_tpu_torch against their plain PyTorch twins, on the card.
+"ix" walk), K5a / K5b (walks on gathered windows), K7 (window gather) and K8
+(fused image-layout VLC + pack) of qb3_tpu_torch against their plain PyTorch
+twins, and the public decode on the card against the CPU's.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither jax nor qb3_tpu, so it also runs on a machine without JAX:
@@ -28,6 +29,8 @@ from qb3_tpu_torch.ops.encode_cuda import (encode_pack_image, encode_pack_image_
                                            image_pack_args)
 from qb3_tpu_torch.ops.encode_image import phase_a_image
 from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
+from qb3_tpu_torch.ops.gather_cuda import (GATHER_MAX_R, gather_slabs, gather_slabs_plain,
+                                           gather_span)
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 
@@ -286,7 +289,51 @@ def test_public_wide_encode_goes_through_k8(cuda, monkeypatch, dtype, mode):
     k1, k8 = pack_cuda.pack_groups_chunked.launches, encode_pack_image.launches
     for index, stream in want.items():
         assert qt.encode(img, mode=mode, index=index, device=cuda) == stream
-        if index:  # a stream without a sidecar decodes by the walk, not ported
-            np.testing.assert_array_equal(qt.decode(stream, device=cuda)[0], img)
+        np.testing.assert_array_equal(qt.decode(stream, device=cuda)[0], img)
     assert encode_pack_image.launches == k8 + 3
     assert pack_cuda.pack_groups_chunked.launches == k1
+
+
+def test_k7_matches_twin(cuda):
+    """The windows of a walked stream, then garbage offsets: unsorted,
+    negative and past the end, with the host span, the smallest span (every
+    word from the stream) and the largest."""
+    img = headline_image(64, 60, 3, seed=40, dtype=np.uint16)
+    stream = qt.encode(img, device="cpu")
+    info = container.parse_headers(stream)
+    data = stream[info.data_offset:]
+    meta, _ = qt.api.walk_offsets(data, 16 * 15, 3, 2, info.mode)
+    inp = qt.api.walk_inputs(meta, padded_words(data), 16, cuda)
+    rng = np.random.default_rng(41)
+    n32 = inp["words32"].shape[0]
+    garbage = torch.from_numpy(rng.integers(-50, n32 + 50, 3000).astype(np.int32)).to(cuda)
+    for base, W, R in ((inp["base"], inp["nreg"], inp["R"]), (inp["base"], 12, 4),
+                       (garbage, 36, gather_span(garbage.cpu().numpy(), 36)),
+                       (garbage, 5, GATHER_MAX_R)):
+        before = gather_slabs.launches
+        got = gather_slabs(inp["words32"], base, W, R)
+        torch.cuda.synchronize()
+        assert gather_slabs.launches == before + 1
+        assert torch.equal(got, gather_slabs_plain(inp["words32"], base, W))
+
+
+@pytest.mark.parametrize("dtype,mode", [
+    (np.uint8, Mode.FTL), (np.uint8, Mode.RLE_H), (np.uint16, Mode.BASE_Z),
+    (np.uint32, Mode.FTL), (np.uint64, Mode.BASE_H)])
+def test_cuda_walk_decode_equals_cpu(cuda, dtype, mode):
+    """Streams without a sidecar: the serial walk, K7 and K5 on the card
+    decode to the CPU's array (the twins)."""
+    img = headline_image(60, 52, 3, seed=42, dtype=dtype)
+    img[8:40, 4:44] = 0  # a no-data area: zero runs for the RLE form
+    img[::8, ::8] = np.iinfo(dtype).max  # high rungs
+    stream = qt.encode(img, mode=mode, device=cuda)
+    assert stream == qt.encode(img, mode=mode, device="cpu")
+    assert container.parse_headers(stream).mode == mode
+    k7, k5 = gather_slabs.launches, wavefront8.launches + wavefront_wide.launches
+    dec = qt.Decoder(stream, device=cuda)
+    out = dec.read_data()
+    assert dec.decode_path == "native-walk"
+    assert gather_slabs.launches == k7 + 1
+    assert wavefront8.launches + wavefront_wide.launches == k5 + 1
+    np.testing.assert_array_equal(out, qt.decode(stream, device="cpu")[0])
+    np.testing.assert_array_equal(out, img)

@@ -72,7 +72,8 @@ def test_rle_equal(seed):
 def test_import_loads_no_jax():
     code = ("import sys, qb3_tpu_torch, qb3_tpu_torch.batch, qb3_tpu_torch.benchutil, "
             "qb3_tpu_torch._build, qb3_tpu_torch.ops.chunkwalk_cuda, "
-            "qb3_tpu_torch.ops.pack_cuda; "
+            "qb3_tpu_torch.ops.pack_cuda, qb3_tpu_torch.ops.gather_cuda, "
+            "qb3_tpu_torch.native, qb3_tpu_torch.offsets; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'qb3_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -157,21 +157,23 @@ def test_ix_encode_bytes_and_decode(name):
     stream = qt.encode(img, index=True, device="cpu", **kw)
     assert stream == qb3_tpu.encode(img, index=True, **kw)
     info = container.parse_headers(stream)
-    if info.mode not in (Mode.FTL, Mode.BASE_H, Mode.BASE_Z, Mode.STORED):
-        return  # RLE: qb3_tpu decodes by the serial walk (not ported)
     ours = qt.Decoder(stream, device="cpu")
     theirs = qb3_tpu.Decoder(stream)
     np.testing.assert_array_equal(ours.read_data(), theirs.read_data())
     assert ours.decode_path == theirs.decode_path
-    assert ours.decode_path == ("stored" if info.mode == Mode.STORED else "ix")
+    if info.mode in (Mode.FTL, Mode.BASE_H, Mode.BASE_Z, Mode.STORED):
+        assert ours.decode_path == ("stored" if info.mode == Mode.STORED else "ix")
 
 
 def test_ix_string_option_and_rle_stream():
     img = corpus.natural8(20, 24, 2, seed=67)
     assert qt.encode(img, index="ix", device="cpu") == qb3_tpu.encode(img, index="ix")
     rle = qt.encode(CORPUS["rle-h"][0](), mode=Mode.RLE_H, index=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        qt.decode(rle, device="cpu")  # RLE goes to the walk, as in qb3_tpu
+    assert container.parse_headers(rle).index is not None
+    ours, theirs = qt.Decoder(rle, device="cpu"), qb3_tpu.Decoder(rle)
+    np.testing.assert_array_equal(ours.read_data(), theirs.read_data())
+    # RLE goes to the walk whatever its sidecar, as in qb3_tpu
+    assert ours.decode_path == theirs.decode_path and ours.decode_path.endswith("-walk")
 
 
 def _flip(stream, pos, bit):
