@@ -11,8 +11,10 @@ the bench rows it serves (u8 512x512x3 single and 128 tiles, u16
 image-layout encode that the public encode takes for u16/u32/u64 images, at
 the four wide single shapes; and the decode of streams without a sidecar
 (the default encode's), by the serial walk on the host and K7 + K5 on the
-card, at the headline and wide shapes.  Phases, each printed on earlier
-lines:
+card, at the headline and wide shapes; and the streaming strips
+(StripEncoder / StripDecoder) of a u8 4096x4096x3 FTL scene and a u16
+4096x4096x1 BASE_H elevation raster in 256-row strips, stitched on the
+card by K6.  Phases, each printed on earlier lines:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source;
@@ -20,8 +22,9 @@ lines:
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
      + pack) at the wide shapes, FTL and BASE, then K7 (window gather) at
-     the walk's u8 512x512x3 and u64 1024x1024x1 windows, each against its
-     plain PyTorch twin: exact equality, median times;
+     the walk's u8 512x512x3 and u64 1024x1024x1 windows, then (3e) K6 (slab
+     placement) at the slabs of the u8 4096x4096x3 strip encode's stitch,
+     each against its plain PyTorch twin: exact equality, median times;
   4. golden bytes: the committed web fixtures (streams pinned to the C
      reference) re-encoded by the port and every one that is not best mode
      decoded to its raw bytes, the headline stream's sha256 and the four
@@ -38,7 +41,13 @@ lines:
      at the headline u8 shape (FTL, BASE_Z and RLE_H) and the four wide
      shapes, its split into host walk, upload, K7, K5 and reconstruct, a
      device profile, and host-to-host MB/s beside the "ic" and "ix" decodes
-     of the same image.
+     of the same image; the streaming strips: each strip stream equal to the
+     whole-image encode on the card, decoded losslessly in 256-row reads by
+     the C++ walk, K7 and K5, the launch counts of the strip encode (K6 once,
+     K1 or K8 once a strip) and decode read per stream, host-to-host MB/s of
+     the strip and whole-image encodes and decodes, K6's stitch beside the
+     host stitch it replaces, and the peak device memory of the strip
+     encode against the whole-image encode.
 
 Launch counts are set to 0 just before each main path and read just after;
 each kernel's count in the result is from the path that runs it.  Any
@@ -74,7 +83,9 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
     "gather_slabs": ("qb3_tpu_torch/csrc/gather.cu", "qb3_tpu/ops/pack_pallas.py:339"),
     "encode_pack_image": ("qb3_tpu_torch/csrc/encode_image.cu",
                           "qb3_tpu/ops/encode_pallas.py:322"),
+    "place_slabs": ("qb3_tpu_torch/csrc/place.cu", "qb3_tpu/ops/pack_pallas.py:388"),
 }
+STRIP_ROWS = 256  # rows a strip encodes and a strip read returns (phase 5)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM INT32 rate: 64 INT32 lanes per SM and clock (NVIDIA H100 Tensor
 # Core GPU Architecture), 132 SMs, at the 1.98 GHz that the data sheet's
@@ -471,6 +482,210 @@ def k7_phase(dev, img, u64):
     return {"gather_slabs": res}
 
 
+def strip_cases():
+    """The strip shapes: label -> (raster, mode, sidecars to encode with).
+    A u8 RGB scene as aerial or satellite orthophoto tiles are, 48 MiB, and
+    a u16 elevation raster, 32 MiB."""
+    from qb3_tpu_torch.benchutil import headline_image
+    from qb3_tpu_torch.constants import Mode
+
+    return {"u8 4096x4096x3 FTL": (headline_image(4096, 4096, 3, seed=300), Mode.FTL,
+                                   (False, "ic")),
+            "u16 4096x4096x1 BASE_H": (headline_image(4096, 4096, 1, seed=301, dtype=np.uint16),
+                                       Mode.BASE_H, (True,))}
+
+
+def row_pieces(h: int) -> list:
+    """Uneven row pieces covering h rows, as a reader hands them over."""
+    rng = np.random.default_rng(h)
+    cuts = np.unique(np.concatenate([[0, h], rng.integers(1, h, max(2, h // 300))]))
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+def strip_encode(x, mode, index, dev, keep=None):
+    """x through StripEncoder in uneven row pieces, STRIP_ROWS-row strips.
+    keep, a dict, receives the strips' words and bit totals as finish()
+    stitches them (every strip is encoded once the last row is pushed)."""
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import api
+
+    h, w, c = x.shape
+    se = qt.StripEncoder(w, h, c, api.DT_FROM_NP[x.dtype], mode=mode, strip_rows=STRIP_ROWS,
+                         with_index=index, device=dev)
+    for a, b in row_pieces(h):
+        se.push(x[a:b])
+    if keep is not None:
+        keep.update(parts=list(se._parts), totals=list(se._totals))
+    return se.finish()
+
+
+def strip_decode(stream, dev):
+    """A stream through StripDecoder in STRIP_ROWS-row reads -> (raster,
+    the decode path of its last strip)."""
+    import qb3_tpu_torch as qt
+
+    sd = qt.StripDecoder(stream, strip_rows=STRIP_ROWS, device=dev)
+    rows = []
+    while (r := sd.read(STRIP_ROWS)) is not None:
+        rows.append(r)
+    return np.concatenate(rows), sd.decode_path
+
+
+def k6_phase(dev, card, x):
+    """Phase 3e: K6 against its twin at the slabs the stitch of the u8
+    4096x4096x3 strip encode places, with one index_add_ call on the same
+    slabs as the yardstick and the kernel's device time from a profile."""
+    import torch
+
+    from qb3_tpu_torch.benchutil import device_profile, median_ms
+    from qb3_tpu_torch.constants import Mode
+    from qb3_tpu_torch.ops.place_cuda import place_slabs, place_slabs_plain
+    from qb3_tpu_torch.stitch import stitch_slabs
+
+    keep = {}
+    strip_encode(x, Mode.FTL, False, dev, keep)
+    slab, base = stitch_slabs(keep["parts"], keep["totals"])
+    n_out = -(-sum(keep["totals"]) // 32)
+    got = place_slabs(slab, base, n_out)
+    err = compare("place_slabs", got, place_slabs_plain(slab, base, n_out))
+    ms = median_ms(lambda: place_slabs(slab, base, n_out))
+    plain = median_ms(lambda: place_slabs_plain(slab, base, n_out), 5)
+    # yardstick: index_add_ into a zeroed stream, index built untimed
+    idx = base.to(torch.int64)[:, None] + torch.arange(slab.shape[1], device=dev)
+    live = idx < n_out
+    idx, vals = torch.where(live, idx, 0).reshape(-1), torch.where(live, slab, 0).reshape(-1)
+
+    def index_add():
+        return torch.zeros(n_out, dtype=torch.int32, device=dev).index_add_(0, idx, vals)
+
+    compare("place_slabs", index_add(), got)
+    lib = median_ms(index_add)
+    p = device_profile(lambda: place_slabs(slab, base, n_out))
+    kernel_ms = sum(v for k, v in p["per_op"].items() if "place_slabs_kernel" in k)
+    need = (nbytes(slab, base, got), slab.numel())
+    bms, by = bound(need)
+    log(f"K6 place_slabs u8 4096x4096x3 strip stitch: {len(keep['parts'])} strips, slabs "
+        f"{tuple(slab.shape)}, {n_out} words: equal, kernel {ms:.4f} ms (device "
+        f"{kernel_ms:.4f} ms; the wrapper's zero fill and launch make up the rest of "
+        f"{p['busy_ms']:.4f} ms busy), twin {plain:.4f} ms, index_add_ {lib:.4f} ms, bound "
+        f"{bms:.5f} ms by {by} ({need[0]} bytes, {need[1]} adds) ({card})")
+    del keep, slab, base, got, idx, vals, live
+    return {"place_slabs": (err, ms, plain, need, lib)}
+
+
+def strip_phase(dev, card, kernels, cases):
+    """Phase 5, the streaming strips: each strip encode against the
+    whole-image encode on the card, each stream decoded by StripDecoder,
+    the launch counts set to 0 just before each strip encode and decode
+    and read just after; then host-to-host MB/s of the strip and whole-image
+    encodes and decodes, K6's stitch beside the host stitch it replaces,
+    and the peak device memory of both encodes.  Returns the launch counts
+    summed over the strip paths."""
+    import torch
+
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch.benchutil import device_profile, host_seconds, sustained
+    from qb3_tpu_torch.ops.bitpack import words_to_bytes
+    from qb3_tpu_torch.stitch import stitch_bytes, stitch_slabs, stitch_words_device
+
+    enc_path = ("place_slabs", "pack_groups_chunked", "encode_pack_image")
+    dec_path = ("gather_slabs", "wavefront8", "wavefront_wide")
+    launches = dict.fromkeys(enc_path + dec_path, 0)
+    streams = {}
+    for label, (x, mode, indexes) in cases.items():
+        nstrips = -(-x.shape[0] // STRIP_ROWS)
+        wide = x.itemsize > 1
+        for index in indexes:
+            name = f"{label} {index or 'no sidecar'}"
+            for fn in kernels.values():
+                fn.launches = 0
+            keep = {}
+            s = strip_encode(x, mode, index, dev, keep)
+            enc = {k: kernels[k].launches for k in enc_path}
+            nparts = len(keep.pop("parts"))  # the last push encodes all rows left as one strip
+            for fn in kernels.values():
+                fn.launches = 0
+            out, path = strip_decode(s, dev)
+            dec = {k: kernels[k].launches for k in dec_path}
+            log(f"launch counts of the strips {name}: encode {enc}, decode {dec}")
+            check(enc == {"place_slabs": 1, "pack_groups_chunked": 0 if wide else nparts,
+                          "encode_pack_image": nparts if wide else 0},
+                  f"strips {name}: the encode's launches")
+            check(dec == {"gather_slabs": nstrips, "wavefront8": 0 if wide else nstrips,
+                          "wavefront_wide": nstrips if wide else 0},
+                  f"strips {name}: the decode's launches")
+            for k in launches:
+                launches[k] += enc.get(k, 0) + dec.get(k, 0)
+            check(np.array_equal(out, x), f"strips {name}: decode differs")
+            check(path == "native-walk", f"strips {name}: decode path {path}")
+            check(s == qt.encode(x, mode=mode, index=index, device=dev),
+                  f"strips {name}: stream differs from the whole-image encode")
+            streams[name] = s
+            log(f"strips {name}: {len(s)} bytes (ratio {len(s) / x.nbytes:.4f}), equal to the "
+                f"whole-image encode on the card, decoded losslessly in {STRIP_ROWS}-row reads "
+                f"({path}; {card})")
+
+    for label, (x, mode, indexes) in cases.items():
+        mb = x.nbytes / 1e6
+        for index in indexes:
+            name = f"{label} {index or 'no sidecar'}"
+            s = streams[name]
+            d = qt.Decoder(s, device=dev)
+            d.read_data()
+            t = {"strip encode": host_seconds(lambda: strip_encode(x, mode, index, dev), 2),
+                 "whole encode": host_seconds(
+                     lambda: qt.encode(x, mode=mode, index=index, device=dev), 2),
+                 "strip decode": host_seconds(lambda: strip_decode(s, dev), 2),
+                 f"whole decode ({d.decode_path})": host_seconds(
+                     lambda: qt.decode(s, device=dev), 2)}
+            log(f"host to host {name}: " + ", ".join(
+                f"{k} {mb / v:.2f} MB/s ({v * 1e3:.1f} ms)" for k, v in t.items()) + f" ({card})")
+        # K6's stitch against the host stitch it replaces, on the same strips
+        index = indexes[0]
+        keep = {}
+        strip_encode(x, mode, index, dev, keep)
+        parts, totals = keep["parts"], keep["totals"]
+        total = sum(totals)
+        n_out = -(-total // 32)
+
+        def device_stitch():
+            words, _ = stitch_words_device(parts, totals, n_out)
+            return words_to_bytes(words.cpu().numpy().view(np.uint32), total)
+
+        def host_stitch():
+            return stitch_bytes([(p.cpu().numpy(), t) for p, t in zip(parts, totals)])
+
+        check(device_stitch() == host_stitch(), f"strips {label}: the stitches differ")
+        slab, base = stitch_slabs(parts, totals)
+        t_dev, t_host = host_seconds(device_stitch, 5), host_seconds(host_stitch, 5)
+        t_res = sustained(lambda: stitch_words_device(parts, totals, n_out), 10)
+        t_k6 = sustained(lambda: kernels["place_slabs"](slab, base, n_out), 20)
+        log(f"stitch {label}, {len(parts)} strips, {total} bits: K6 stitch to host bytes "
+            f"{t_dev * 1e3:.4f} ms (device-resident {t_res * 1e3:.4f} ms, K6 alone "
+            f"{t_k6 * 1e3:.4f} ms), host stitch (download every strip, stitch_bytes) "
+            f"{t_host * 1e3:.4f} ms ({card})")
+        p = device_profile(lambda: stitch_words_device(parts, totals, n_out))
+        log(f"profile device-resident stitch {label}: wall {p['wall_ms']:.4f} ms, device busy "
+            f"{p['busy_ms']:.4f} ms, idle {p['idle']:.3f}, {p['ops']:.0f} device ops, top "
+            f"{p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
+        del keep, parts, slab, base
+        # peak device memory above what is allocated before the call
+        peaks = {}
+        for k, fn in (("strip encode", lambda: strip_encode(x, mode, index, dev)),
+                      ("whole encode", lambda: qt.encode(x, mode=mode, index=index,
+                                                         device=dev))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peaks[k] = torch.cuda.max_memory_allocated() - before
+        log(f"peak device memory {label}: strip encode {peaks['strip encode'] / 2**20:.1f} MiB, "
+            f"whole encode {peaks['whole encode'] / 2**20:.1f} MiB "
+            f"({peaks['whole encode'] / peaks['strip encode']:.2f}x) ({card})")
+    return launches
+
+
 def fixture_phase(dev):
     """Phase 4a: the web fixtures, re-encoded by the port, and every one that
     is not best mode decoded to its raw bytes."""
@@ -620,6 +835,7 @@ def main() -> int:
     from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs
     from qb3_tpu_torch.ops.pack_cuda import extract_windows, pack_groups_chunked
+    from qb3_tpu_torch.ops.place_cuda import place_slabs
     from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
 
     dev = torch.device("cuda")
@@ -651,6 +867,8 @@ def main() -> int:
     kres.update(ix_res)
     kres.update(k8_phase(dev))
     kres.update(k7_phase(dev, img, wide_image("u64 1024x1024x1")))
+    scases = strip_cases()
+    kres.update(k6_phase(dev, card, scases["u8 4096x4096x3 FTL"][0]))
 
     log("# phase 4: golden bytes")
     fixture_phase(dev)
@@ -670,7 +888,7 @@ def main() -> int:
                "extract_windows": extract_windows, "chunkwalk8": chunkwalk8,
                "wavefront_fused": wavefront_fused, "wavefront8": wavefront8,
                "wavefront_wide": wavefront_wide, "gather_slabs": gather_slabs,
-               "encode_pack_image": encode_pack_image}
+               "encode_pack_image": encode_pack_image, "place_slabs": place_slabs}
     ic_path = ("pack_groups_chunked", "extract_windows", "chunkwalk8")
     ix_path = ("pack_groups_chunked", "wavefront_fused", "wavefront8", "wavefront_wide")
     for fn in kernels.values():
@@ -858,6 +1076,7 @@ def main() -> int:
 
     launches["gather_slabs"] = walk_phase(dev, card, img, wide_imgs, kernels, stream,
                                           ix_streams["u8 512x512x3"][0])["gather_slabs"]
+    launches["place_slabs"] = strip_phase(dev, card, kernels, scases)["place_slabs"]
 
     line = []
     for name in KERNELS:

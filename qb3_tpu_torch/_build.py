@@ -37,6 +37,7 @@ SIGNATURES = {
                             _P, _P, _P, _P, _P, _P, _P],
     "qb3_encode_pack_image": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _U64, _I64, _P, _P],
     "qb3_gather_slabs": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
+    "qb3_place_slabs": [_P, _P, _I64, _I32, _P, _I64, _P],
 }
 
 
@@ -51,13 +52,21 @@ def _nvcc() -> str:
     return found
 
 
-def lib_path(stem: str, flags: list[str], paths: list[str]) -> str:
-    """build/qb3_tpu_torch/lib<stem>_<hash>.so, the hash taken over the
-    compiler flags and the named sources."""
-    h = hashlib.sha256(" ".join(flags).encode())
+def read_sources(paths: list[str]) -> dict[str, bytes]:
+    """File name -> contents of each path."""
+    out = {}
     for path in paths:
         with open(path, "rb") as f:
-            h.update(os.path.basename(path).encode() + f.read())
+            out[os.path.basename(path)] = f.read()
+    return out
+
+
+def lib_path(stem: str, flags: list[str], sources: dict[str, bytes]) -> str:
+    """build/qb3_tpu_torch/lib<stem>_<hash>.so, the hash taken over the
+    compiler flags and the sources (file name -> contents)."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name, text in sources.items():
+        h.update(name.encode() + text)
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
@@ -68,7 +77,7 @@ def build() -> str:
     kept beside the library as <library>.log."""
     sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
     lib = lib_path("qb3_tpu_torch", NVCC_FLAGS,
-                   sorted(glob.glob(os.path.join(SRC_DIR, "*.cu*"))))
+                   read_sources(sorted(glob.glob(os.path.join(SRC_DIR, "*.cu*")))))
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)

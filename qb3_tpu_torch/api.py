@@ -73,6 +73,11 @@ _NOT_PORTED = {
 }
 
 
+# the mode an RLE form encodes in before its RLE0 post-pass
+RLE_BASE = {Mode.RLE: Mode.BASE_Z, Mode.CF_RLE: Mode.CF,
+            Mode.RLE_H: Mode.BASE_H, Mode.CF_RLE_H: Mode.CF_H}
+
+
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"not ported yet: {_NOT_PORTED[what]}")
 
@@ -341,10 +346,7 @@ class Encoder:
             return self._stored(src)
 
         user_mode = self.mode
-        mode = user_mode
-        if needs_rle(mode):
-            mode = {Mode.RLE: Mode.BASE_Z, Mode.CF_RLE: Mode.CF,
-                    Mode.RLE_H: Mode.BASE_H, Mode.CF_RLE_H: Mode.CF_H}[mode]
+        mode = RLE_BASE.get(user_mode, user_mode)
         if not is_fast_mode(mode):
             raise not_ported("best")
 
@@ -387,7 +389,11 @@ class Encoder:
             return result
         return self._stored(src)
 
-    def _encode_payload(self, uns: np.ndarray, mode: Mode):
+    def _encode_words(self, uns: np.ndarray, mode: Mode):
+        """Phase A and the pack of one (H, W, C) unsigned raster from the
+        persisted band state, on the device -> (the stream words used, a view
+        of the first ceil(total / 32) words on the device; total bits; the
+        exit (prev, runbits) on the host; glen; rung)."""
         h, w, nb = uns.shape
         tbits = uns.dtype.itemsize * 8
         n_words = stream_words(w, h, nb, self.dtype)
@@ -398,11 +404,14 @@ class Encoder:
             to_carrier(uns, self.device), prev, runbits, self.order or HILBERT,
             tuple(self.cband), mode == Mode.FTL, tbits, n_words)
         state = (from_carrier(xprev, uns.dtype.itemsize), xrun.cpu().numpy())
+        total = int(total)
+        return words[: (total + 31) // 32], total, state, glen, rung
+
+    def _encode_payload(self, uns: np.ndarray, mode: Mode):
+        used, total, state, glen, rung = self._encode_words(uns, mode)
         self._last_rungs = rung.cpu().numpy()
         self._last_glens = glen.cpu().numpy()
-        total = int(total)
-        used = words[: (total + 31) // 32].cpu().numpy().view(np.uint32)
-        return words_to_bytes(used, total), state
+        return words_to_bytes(used.cpu().numpy().view(np.uint32), total), state
 
     def _chunked_sidecar(self, entry_runbits: np.ndarray) -> bytes | None:
         """"ic" chunk payload: per-chunk bit spans + entry rung state
@@ -486,37 +495,49 @@ def _fused_ix_params(glens: np.ndarray, tbits: int, tile_words32: int = 0):
     return nreg, R
 
 
-def walk_offsets(data: bytes, nblocks: int, nb: int, tsize: int, mode: int):
+def walk_offsets(data: bytes, nblocks: int, nb: int, tsize: int, mode: int,
+                 entry_runbits=None, entry_cf=None, start_bit: int = 0):
     """The serial walk of a payload -> (offsets.parse_offsets' result,
     "native-walk" or "python-walk"): the C++ walk where its library loads,
-    else the Python one, as qb3_tpu picks."""
+    else the Python one, as qb3_tpu picks.  The entry state (per-band rung
+    history and CF, and the bit to start from) continues a walk, as the
+    strip decoder does strip by strip."""
     from . import native
 
     if native.available():
-        return (native.parse_offsets_native(data, nblocks, nb, tsize, mode == Mode.FTL),
+        return (native.parse_offsets_native(data, nblocks, nb, tsize, mode == Mode.FTL,
+                                            entry_runbits, entry_cf, start_bit),
                 "native-walk")
-    return parse_offsets(data, nblocks, nb, tsize, mode), "python-walk"
+    return (parse_offsets(data, nblocks, nb, tsize, mode, entry_runbits, entry_cf, start_bit),
+            "python-walk")
 
 
-def walk_inputs(meta: dict, words: np.ndarray, tbits: int, device) -> dict:
-    """decode_groups' arguments from a walk's result: the padded stream
-    words (padded_words), and each group's window word, bit within it, rung
-    and K5 kind, uploaded in one (4, ngroups) int32 copy; nreg and K7's span
-    R computed here.  A walk that met best-mode group codes (CF, CF0 or IDX:
+def group_inputs(meta: dict, n32: int, tbits: int, device) -> dict:
+    """decode_groups' per-group arguments from a walk's result over a stream
+    of n32 u32 words: each group's window word, bit within it, rung and K5
+    kind, uploaded in one (4, ngroups) int32 copy; nreg and K7's span R
+    computed here.  A walk that met best-mode group codes (CF, CF0 or IDX:
     a damaged BASE stream can) raises NotImplementedError."""
     kind = meta["kind"].reshape(-1)
     if kind.size and int(kind.max()) > KIND_BITS:
         raise not_ported("best")
     val_pos = meta["val_pos"].reshape(-1)
-    words32 = words.view(np.int32)
     # a window at or past the stream's end reads zeros wherever it starts,
     # so the word index is kept within int32
-    base = np.minimum(val_pos >> 5, words32.size)
+    base = np.minimum(val_pos >> 5, n32)
     nreg = _NREG_IX[tbits]
     host = np.stack([base, val_pos & 31, meta["vrung"].reshape(-1), K5_KIND[kind]])
     t = torch.from_numpy(host.astype(np.int32)).to(device)
-    return dict(words32=torch.from_numpy(words32).to(device), base=t[0], off=t[1],
-                rung=t[2], kind=t[3], nreg=nreg, R=gather_span(base, nreg))
+    return dict(base=t[0], off=t[1], rung=t[2], kind=t[3], nreg=nreg,
+                R=gather_span(base, nreg))
+
+
+def walk_inputs(meta: dict, words: np.ndarray, tbits: int, device) -> dict:
+    """decode_groups' arguments from a walk's result: the padded stream
+    words (padded_words) uploaded, and group_inputs."""
+    words32 = words.view(np.int32)
+    return dict(words32=torch.from_numpy(words32).to(device),
+                **group_inputs(meta, words32.size, tbits, device))
 
 
 class Decoder:

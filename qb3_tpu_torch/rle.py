@@ -12,19 +12,27 @@ consecutive 0xff, >= 4 consecutive zeros) are located up front with
 vectorized scans, literals between sites are copied in bulk, and only the
 sites themselves run through the coding rules.
 
-A copy of qb3_tpu/rle.py without its optional native C helper (the port loads
-no host library); the helper implements the same algorithm, so the bytes are
-the same.
+A copy of qb3_tpu/rle.py: the C++ library of native.py provides the same
+algorithm, and each function takes it where the library loads (it is built
+at first use) and the Python path otherwise; the bytes are the same.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import native
+
 _MAX_RUN = 258  # 4 implied zeros + a 0..0xfe extension count
 
 
 def rle0_encode(data: bytes) -> bytes:
+    if native.available():
+        return native.rle0_encode(data)
+    return _rle0_encode_py(data)
+
+
+def _rle0_encode_py(data: bytes) -> bytes:
     n = len(data)
     if n < 3:
         return data
@@ -72,6 +80,12 @@ def rle0_encode(data: bytes) -> bytes:
 
 def rle0_decode(data: bytes, expected: int) -> bytes:
     """Expand; raises on overflow past ``expected`` bytes (malicious input guard)."""
+    if native.available():
+        return native.rle0_decode(data, expected)
+    return _rle0_decode_py(data, expected)
+
+
+def _rle0_decode_py(data: bytes, expected: int) -> bytes:
     n = len(data)
     buf = np.frombuffer(data, np.uint8)
     pairs = (np.flatnonzero((buf[:-1] == 0xFF) & (buf[1:] == 0xFF))
@@ -96,6 +110,8 @@ def rle0_decode(data: bytes, expected: int) -> bytes:
 
 def rle0_decoded_size(data: bytes) -> int:
     """Size after expansion (QB3decode.cpp:294-307)."""
+    if native.available():
+        return native.rle0_size(data)
     n = len(data)
     buf = np.frombuffer(data, np.uint8)
     pairs = (np.flatnonzero((buf[:-1] == 0xFF) & (buf[1:] == 0xFF))

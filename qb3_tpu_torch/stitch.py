@@ -1,0 +1,148 @@
+"""Bit-granularity stream concatenation: on the host with NumPy, and on the
+device through K6.
+
+QB3 payloads are bit-dense: appending one sub-stream after another lands at
+arbitrary bit phase.  stitch_words, stitch_bytes and assemble_scatter are
+copies of qb3_tpu/stitch.py's host functions; stitch_words_device is the
+counterpart of its device stitch, on torch tensors, with the placement done
+by K6 (ops/place_cuda.place_slabs).  reference analog: the shared oBits
+accumulator across sub-encodes (QB3encode.cpp:405-455).  qb3_tpu's
+scatter_stitch_shard runs inside shard_map and waits for the multi-device
+slice (ROADMAP.md item 14).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.bitutils import M32
+from .ops.place_cuda import place_slabs
+
+STITCH_W = 32  # words per K6 slab
+
+
+def _as_u64(words: np.ndarray, nbits: int) -> np.ndarray:
+    """View any word array as little-endian u64 words, masked to nbits."""
+    b = np.ascontiguousarray(words).view(np.uint8)
+    nbytes = (nbits + 7) // 8
+    nw = (nbits + 63) // 64
+    buf = np.zeros(nw * 8, np.uint8)
+    buf[:nbytes] = b[:nbytes]
+    w = buf.view("<u8").copy()
+    tail = nbits & 63
+    if nw and tail:
+        w[-1] &= np.uint64((1 << tail) - 1)
+    return w
+
+
+def stitch_words(parts) -> tuple[np.ndarray, int]:
+    """parts: iterable of (words_array, nbits) -> (u64 words, total_bits).
+
+    Bits of part k start at sum(nbits of parts < k); unused tail bits of the
+    result are zero.
+    """
+    parts = [(w, int(n)) for w, n in parts]
+    total = sum(n for _, n in parts)
+    out = np.zeros(total // 64 + 2, np.uint64)
+    off = 0
+    for words, nbits in parts:
+        if nbits == 0:
+            continue
+        w = _as_u64(words, nbits)
+        base, s = off >> 6, off & 63
+        nw = w.shape[0]
+        if s == 0:
+            out[base : base + nw] |= w
+        else:
+            s64 = np.uint64(s)
+            out[base : base + nw] |= w << s64
+            out[base + 1 : base + nw + 1] |= w >> np.uint64(64 - s)
+        off += nbits
+    return out, total
+
+
+def stitch_bytes(parts) -> bytes:
+    """stitch_words, returned as the payload byte string."""
+    words, total = stitch_words(parts)
+    return words.view(np.uint8)[: (total + 7) // 8].tobytes()
+
+
+def assemble_scatter(owns: np.ndarray, n_owns: np.ndarray,
+                     totals: np.ndarray) -> bytes:
+    """Host assembly of scatter_stitch_shard outputs: word-aligned
+    concatenation; consecutive shards share one boundary word, whose
+    disjoint-bit halves combine with an OR (so shards owning zero whole
+    words — tiny/highly-compressible strips — just OR their bits into the
+    shared word instead of corrupting the chain)."""
+    total = int(totals.sum())
+    out = np.zeros(total // 64 + 2, np.uint64)
+    offs = np.cumsum(totals) - totals
+    for s in range(owns.shape[0]):
+        base = int(offs[s]) >> 6
+        n = int(n_owns[s])
+        out[base : base + n + 1] |= owns[s][: n + 1]
+    return out.view(np.uint8)[: (total + 7) // 8].tobytes()
+
+
+def stitch_slabs(words, totals):
+    """The slabs of a device stitch: each part masked past its total and
+    funnel-shifted to its bit phase, its shifted span cut into W-word slabs
+    at word bases (off >> 5) + k*W, sorted because the parts are in order
+    -> (slab (nslabs, W) int32, base (nslabs,) int32), W = STITCH_W, or
+    None where every part is empty.  words and totals as
+    stitch_words_device takes them."""
+    W = STITCH_W
+    totals = [int(t) for t in totals]
+    dev = words[0].device
+    offs = np.cumsum([0] + totals[:-1], dtype=np.int64)
+    live = [s for s, n in enumerate(totals) if n > 0]
+    if not live:
+        return None
+    n = np.array([totals[s] for s in live], np.int64)
+    off = offs[live]
+    nw = (n + 31) >> 5  # source words of each part
+    sh = off & 31
+    nslab = -(-((sh + n + 31) >> 5) // W)  # slabs of each part's shifted span
+    start = np.cumsum(nw) - nw  # each part's first word in the joined parts
+    # the joined parts, each masked past its total (its last word's tail)
+    cat = torch.cat([words[s][: int(k)] for s, k in zip(live, nw)]).to(torch.int64) & M32
+    tail = n & 31
+    last = torch.from_numpy(start + nw - 1).to(dev)
+    cat[last] &= torch.from_numpy(np.where(tail == 0, M32, (1 << tail) - 1)).to(dev)
+    # one row per slab: its first source word, the part's words left from
+    # there, whether it is the part's first slab, the phase and the base
+    part = np.repeat(np.arange(len(live)), nslab)
+    k = np.arange(part.size) - np.repeat(np.cumsum(nslab) - nslab, nslab)
+    rows = np.stack([start[part] + k * W, nw[part] - k * W, k == 0, sh[part],
+                     (off[part] >> 5) + k * W])
+    q0, left, first, s, base = torch.from_numpy(rows).to(dev)
+    j = torch.arange(W, device=dev)
+    src = q0[:, None] + j
+    cur_ok = j < left[:, None]
+    prev_ok = (j - 1 < left[:, None]) & ~((j == 0) & (first[:, None] == 1))
+    cur = torch.where(cur_ok, cat[torch.where(cur_ok, src, 0)], 0)
+    prev = torch.where(prev_ok, cat[torch.where(prev_ok, src - 1, 0)], 0)
+    s = s[:, None]
+    slab = ((cur << s) & M32) | torch.where(s == 0, 0, prev >> ((32 - s) & 31))
+    return slab.to(torch.int32), base.to(torch.int32)
+
+
+def stitch_words_device(words, totals, n_out: int):
+    """Device stitch: per-part u32 words -> one bit-dense stream, through K6.
+
+    words: the parts' int32 word tensors on one device, in stream order (a
+    list of 1-D tensors of any lengths, or the rows of an (S, NW) tensor),
+    each holding at least ceil(totals[s] / 32) words, bits past totals[s]
+    unspecified; totals: the parts' bit lengths (host integers); n_out: the
+    output's u32 word count (words past it are dropped; ceil(sum / 32)
+    keeps every bit).  stitch_slabs cuts the parts into slabs, and K6 adds
+    them into a zeroed stream: the parts touch disjoint bits.  Returns
+    ((n_out,) int32 words, zero past the total; total bits).  qb3_tpu's
+    stitch_words_device returns the same stream as u64 words.
+    """
+    total = sum(int(t) for t in totals)
+    cut = stitch_slabs(words, totals)
+    if cut is None:
+        return torch.zeros(n_out, dtype=torch.int32, device=words[0].device), total
+    return place_slabs(*cut, n_out), total

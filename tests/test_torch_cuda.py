@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (pack), K2 (chunk walk), K3 (window copy), K4 (fused
-"ix" walk), K5a / K5b (walks on gathered windows), K7 (window gather) and K8
-(fused image-layout VLC + pack) of qb3_tpu_torch against their plain PyTorch
-twins, and the public decode on the card against the CPU's.
+"ix" walk), K5a / K5b (walks on gathered windows), K6 (slab placement), K7
+(window gather) and K8 (fused image-layout VLC + pack) of qb3_tpu_torch
+against their plain PyTorch twins, and the public decode and the strips on
+the card against the CPU's.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither jax nor qb3_tpu, so it also runs on a machine without JAX:
@@ -31,6 +32,8 @@ from qb3_tpu_torch.ops.encode_image import phase_a_image
 from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
 from qb3_tpu_torch.ops.gather_cuda import (GATHER_MAX_R, gather_slabs, gather_slabs_plain,
                                            gather_span)
+from qb3_tpu_torch.ops.place_cuda import place_slabs, place_slabs_plain
+from qb3_tpu_torch.stitch import stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 
@@ -337,3 +340,60 @@ def test_cuda_walk_decode_equals_cpu(cuda, dtype, mode):
     assert wavefront8.launches + wavefront_wide.launches == k5 + 1
     np.testing.assert_array_equal(out, qt.decode(stream, device="cpu")[0])
     np.testing.assert_array_equal(out, img)
+
+
+def test_k6_matches_twin(cuda):
+    """K6 against its twin: sorted disjoint-bit slabs (a stitch's), the same
+    slabs unsorted, words dropped past n_words, and random values (the sum
+    wraps alike)."""
+    rng = np.random.default_rng(43)
+    totals = [int(t) for t in rng.integers(0, 40000, 9)] + [0, 31, 64, 1]
+    words = [torch.from_numpy(rng.integers(-2**31, 2**31, -(-t // 32) + 2, dtype=np.int64)
+                              .astype(np.int32)) for t in totals]
+    n_out = -(-sum(totals) // 32)
+    want, _ = stitch_words_device(words, totals, n_out)
+    before = place_slabs.launches
+    got, _ = stitch_words_device([w.to(cuda) for w in words], totals, n_out)
+    torch.cuda.synchronize()
+    assert place_slabs.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    slab = torch.from_numpy(rng.integers(-2**31, 2**31, (5000, 7), dtype=np.int64)
+                            .astype(np.int32)).to(cuda)
+    base = torch.from_numpy(rng.integers(0, 30000, 5000).astype(np.int32)).to(cuda)
+    for b in (torch.sort(base).values, base):
+        for n_words in (30010, 20000):
+            got = place_slabs(slab, b, n_words)
+            torch.cuda.synchronize()
+            assert torch.equal(got, place_slabs_plain(slab, b, n_words))
+
+
+@pytest.mark.parametrize("dtype,mode,index", [(np.uint8, Mode.FTL, False),
+                                              (np.uint16, Mode.BASE_H, True),
+                                              (np.uint8, Mode.RLE_H, "ic")])
+def test_cuda_strips_equal_cpu(cuda, dtype, mode, index):
+    """StripEncoder on the card: the CPU's bytes and the whole-image encode,
+    stitched by K6 once; StripDecoder on the card: the image, with K7 and K5
+    launched for every strip."""
+    img = headline_image(200, 64, 3, seed=44, dtype=dtype)
+    img[40:120, 8:56] = 0
+    h, w, c = img.shape
+
+    def strips(device):
+        se = qt.StripEncoder(w, h, c, qt.api.DT_FROM_NP[img.dtype], mode=mode,
+                             strip_rows=32, with_index=index, device=device)
+        for y in range(0, h, 24):
+            se.push(img[y:y + 24])
+        return se.finish()
+
+    k6 = place_slabs.launches
+    stream = strips(cuda)
+    assert place_slabs.launches == k6 + 1
+    assert stream == strips("cpu") == qt.encode(img, mode=mode, index=index, device=cuda)
+    k7 = gather_slabs.launches
+    sd = qt.StripDecoder(stream, strip_rows=32, device=cuda)
+    rows = []
+    while (r := sd.read(50)) is not None:
+        rows.append(r)
+    assert sd.decode_path == "native-walk"
+    assert gather_slabs.launches == k7 + -(-h // 32)
+    np.testing.assert_array_equal(np.concatenate(rows), img)

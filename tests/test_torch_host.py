@@ -1,6 +1,7 @@
 """The host modules qb3_tpu_torch copies from qb3_tpu (constants, tables,
-container, rle) give the same values and bytes, and importing the port
-loads neither jax nor qb3_tpu."""
+container, rle) give the same values and bytes, the RLE0 pass through the
+port's C++ library (native.py) gives the Python path's bytes, and importing
+the port loads neither jax nor qb3_tpu."""
 
 import subprocess
 import sys
@@ -12,7 +13,7 @@ from qb3_tpu import constants as jconstants
 from qb3_tpu import container as jcontainer
 from qb3_tpu import rle as jrle
 from qb3_tpu import tables as jtables
-from qb3_tpu_torch import constants, container, rle, tables
+from qb3_tpu_torch import constants, container, native, rle, tables
 
 TABLES = ["ENC_SINGLE", "ENC_GROUP", "DEC_SINGLE", "DEC_GROUP", "CSW", "DSW",
           "SIGNAL", "IDX_ENC", "IDX_DEC"]
@@ -69,10 +70,66 @@ def test_rle_equal(seed):
     assert rle.rle0_decode(packed, len(data)) == data
 
 
+def _rle_buffers(seed):
+    """Random buffers of zero floods, 0xff floods, mixed escapes, runs
+    straddling the 258-zero limit and the boundary shapes."""
+    rng = np.random.default_rng(seed)
+    for trial in range(120):
+        n = int(rng.integers(0, 400))
+        style = trial % 5
+        if style == 0:
+            buf = rng.integers(0, 256, n, dtype=np.uint8)
+        elif style == 1:
+            buf = rng.choice(np.array([0, 0, 0, 0, 0xFF, 0xFF, 1], np.uint8), n)
+        elif style == 2:
+            buf = np.zeros(n, np.uint8)
+        elif style == 3:
+            buf = np.full(n, 0xFF, np.uint8)
+        else:
+            buf = rng.choice(np.array([0, 0xFF], np.uint8), n)
+        yield buf.tobytes()
+    for n in (0, 1, 2, 3, 257, 258, 259, 300, 1000):
+        yield bytes(n)
+    yield from (b"\xff\xff\x00", b"\xff\x00\x00\x00\x00\x00", b"\x00\x00\x00\x00\xff")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rle0_native_equals_python(seed):
+    """The C++ RLE0 pass writes the Python path's bytes, expands them back,
+    sizes them alike, and rejects an overflowing run."""
+    if not native.available():
+        pytest.skip("no C++ compiler: the native library does not build")
+    for data in _rle_buffers(seed):
+        packed = rle._rle0_encode_py(data)
+        assert native.rle0_encode(data) == packed == rle.rle0_encode(data)
+        assert native.rle0_decode(packed, len(data)) == data == rle._rle0_decode_py(packed, len(data))
+        assert native.rle0_size(packed) == len(data)
+    with pytest.raises(ValueError):
+        native.rle0_decode(b"\xff\xff\xf0" + b"x" * 8, 10)
+
+
+@pytest.mark.parametrize("mode", ["RLE_H", "RLE"])
+def test_rle_streams_equal_with_and_without_native(mode, monkeypatch):
+    """An RLE stream round trip: the same bytes with the C++ pass and with
+    the Python path, and the decode of either gives the image."""
+    import qb3_tpu_torch as qt
+
+    img = np.zeros((48, 40, 2), np.uint8)
+    img[8:20, 4:36] = np.random.default_rng(5).integers(0, 256, (12, 32, 2), dtype=np.uint8)
+    img[30:34, 10:12] = 0xFF
+    stream = qt.encode(img, mode=constants.Mode[mode], device="cpu")
+    assert container.parse_headers(stream).mode == constants.Mode[mode]
+    np.testing.assert_array_equal(qt.decode(stream, device="cpu")[0], img)
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert qt.encode(img, mode=constants.Mode[mode], device="cpu") == stream
+    np.testing.assert_array_equal(qt.decode(stream, device="cpu")[0], img)
+
+
 def test_import_loads_no_jax():
     code = ("import sys, qb3_tpu_torch, qb3_tpu_torch.batch, qb3_tpu_torch.benchutil, "
             "qb3_tpu_torch._build, qb3_tpu_torch.ops.chunkwalk_cuda, "
             "qb3_tpu_torch.ops.pack_cuda, qb3_tpu_torch.ops.gather_cuda, "
+            "qb3_tpu_torch.ops.place_cuda, qb3_tpu_torch.stitch, qb3_tpu_torch.strip, "
             "qb3_tpu_torch.native, qb3_tpu_torch.offsets; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'qb3_tpu')]; "
             "assert not bad, bad")

@@ -7,6 +7,7 @@ numpy from a seed; the tolerance is zero.
 """
 
 import base64
+import importlib.util
 import json
 import os
 
@@ -123,19 +124,36 @@ def test_parse_offsets_equal(name):
 
 @pytest.mark.parametrize("name", list(WALK_STREAMS))
 def test_native_walk_equal(name):
-    """The port's C++ walk (built from native/qb3xs.cpp into build/) returns
-    qb3_tpu's native result, and the Python walk's kinds and positions."""
-    if not (native.available() and j_native.available()):
+    """The port's C++ walk (built from native/qb3xs.cpp and the port's
+    tables into build/) returns qb3_tpu's Python walk's result, key for key,
+    and qb3_tpu's own C++ walk's where that one loaded (qb3_tpu builds it
+    with make at import, and the build can fail: the comparison with the
+    Python walk never depends on it)."""
+    if not native.available():
         pytest.skip("no C++ compiler: the native walk does not build")
     data, info, nblocks = _payload(WALK_STREAMS[name]())
     tsize = TYPESIZES[info.dtype]
     args = (data, nblocks, info.nbands, tsize, info.mode == Mode.FTL)
     got = native.parse_offsets_native(*args)
-    _assert_walks_equal(got, j_native.parse_offsets_native(*args))
-    py = offsets.parse_offsets(data, nblocks, info.nbands, tsize, info.mode)
-    for k in ("kind", "val_pos", "vrung", "cf", "rung", "failed"):
-        np.testing.assert_array_equal(got[k], py[k], err_msg=k)
+    want = j_offsets.parse_offsets(data, nblocks, info.nbands, tsize, info.mode)
+    assert not got["failed"]
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+    if j_native.available():
+        _assert_walks_equal(got, j_native.parse_offsets_native(*args))
     assert native.build().startswith(os.path.join(ROOT, "build", "qb3_tpu_torch"))
+
+
+def test_native_tables_equal_the_generated_file(tmp_path):
+    """The decode tables the port compiles into its C++ walk (native.tables_inc,
+    from the port's tables) are the text tools/gen_tables_c.py writes from
+    qb3_tpu's tables."""
+    spec = importlib.util.spec_from_file_location(
+        "gen_tables_c", os.path.join(ROOT, "tools", "gen_tables_c.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    gen.main(str(tmp_path / "tables.inc"))
+    assert native.tables_inc() == (tmp_path / "tables.inc").read_text()
 
 
 def test_native_walk_end_pos_after_failure():
@@ -283,18 +301,28 @@ def _read(dec_cls, stream):
         return type(e).__name__, str(e)
 
 
+@pytest.mark.parametrize("walk", ["native", "python"])
 @pytest.mark.parametrize("damage", ["truncated-50", "truncated-90", "garbage", "flip-10",
                                     "flip-37", "flip-64", "flip-91"])
 @pytest.mark.parametrize("name", list(DAMAGED))
-def test_damaged_stream_decodes_like_qb3_tpu(name, damage):
-    """The same array, `failed` flag and decode path as qb3_tpu's
-    read_data(partial=True), and an exception where it raises.  A flipped
-    BASE stream whose walk meets best-mode group codes (CF, CF0, IDX) raises
-    NotImplementedError in the port (ROADMAP.md item 12), where qb3_tpu
-    decodes those groups."""
+def test_damaged_stream_decodes_like_qb3_tpu(name, damage, walk, monkeypatch):
+    """The same array and `failed` flag as qb3_tpu's read_data(partial=True),
+    and an exception where it raises, with the port's walk pinned to its C++
+    or its Python walk and qb3_tpu on whichever walk it took (its C++ walk
+    where its make-built helper loaded): both walks locate the same groups,
+    and a failed walk raises before its end_pos, the one value in which the
+    two walks differ, is read.  A flipped BASE stream whose walk meets
+    best-mode group codes (CF, CF0, IDX) raises NotImplementedError in the
+    port (ROADMAP.md item 12), where qb3_tpu decodes those groups."""
+    if walk == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+    elif not native.available():
+        pytest.skip("no C++ compiler: the native walk does not build")
     make, mode = DAMAGED[name]
     stream = _damage(qb3_tpu.encode(make(), mode=mode), damage)
     ours, theirs = _read(qt.Decoder, stream), _read(qb3_tpu.Decoder, stream)
+    if not isinstance(ours[0], str):
+        assert ours[2] == f"{walk}-walk"
     if isinstance(ours[0], str) and ours[0] == "NotImplementedError":
         assert (name, damage) == ("u8-base-h", "flip-64") and "item 12" in ours[1]
         data, info, nblocks = _payload(stream)
@@ -306,6 +334,7 @@ def test_damaged_stream_decodes_like_qb3_tpu(name, damage):
         assert ours[0] == theirs[0]
         return
     np.testing.assert_array_equal(ours[0], theirs[0])
-    assert ours[1:] == theirs[1:]
+    assert ours[1] == theirs[1]
+    assert theirs[2] in ("native-walk", "python-walk")
     if not damage.startswith("flip"):
         assert ours[1] == (damage == "garbage")  # truncated input reads zeros
