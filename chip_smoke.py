@@ -9,12 +9,15 @@ a batch of 128 tiles; the "ix" sidecar encode and decode at the shapes of
 the bench rows it serves (u8 512x512x3 single and 128 tiles, u16
 1024x1024x1, u16 512x512x8, u32 and u64 1024x1024x1, u64 8 tiles); the
 image-layout encode that the public encode takes for u16/u32/u64 images, at
-the four wide single shapes; and the decode of streams without a sidecar
-(the default encode's), by the serial walk on the host and K7 + K5 on the
-card, at the headline and wide shapes; and the streaming strips
-(StripEncoder / StripDecoder) of a u8 4096x4096x3 FTL scene and a u16
-4096x4096x1 BASE_H elevation raster in 256-row strips, stitched on the
-card by K6.  Phases, each printed on earlier lines:
+the four wide single shapes; the decode of streams without a sidecar (the
+default encode's, and the best-mode streams the C reference and qb3_tpu
+write by default), by the serial walk on the host and K7 + K5 on the card,
+at the headline and wide shapes and on the repository's Landsat sample (a
+512x512x8 u16 CF_H stream); the streaming strips (StripEncoder /
+StripDecoder) of a u8 4096x4096x3 FTL scene and a u16 4096x4096x1 BASE_H
+elevation raster in 256-row strips, stitched on the card by K6; and the
+Mosaic probes (`python -m qb3_tpu_torch.probes`) on P1-P7.  Phases, each
+printed on earlier lines:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source;
@@ -22,13 +25,20 @@ card by K6.  Phases, each printed on earlier lines:
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
      + pack) at the wide shapes, FTL and BASE, then K7 (window gather) at
-     the walk's u8 512x512x3 and u64 1024x1024x1 windows, then (3e) K6 (slab
-     placement) at the slabs of the u8 4096x4096x3 strip encode's stitch,
-     each against its plain PyTorch twin: exact equality, median times;
+     the walk's u8 512x512x3 and u64 1024x1024x1 windows, then (3d) K5a and
+     K5b on best-mode kinds (CF, CF0, IDX): the Landsat sample's groups, a
+     damaged 512x512x3 BASE_H stream whose walk meets best-mode codes, and
+     u32 / u64 random windows over every kind, with kind counts, then (3e)
+     K6 (slab placement) at the slabs of the u8 4096x4096x3 strip encode's
+     stitch, then (3f) P1-P7 at their probes' shapes, each against its
+     plain PyTorch twin (exact equality) and, for the probes, the probe's
+     own check; median times, twin times, bounds and a one-call yardstick;
   4. golden bytes: the committed web fixtures (streams pinned to the C
-     reference) re-encoded by the port and every one that is not best mode
-     decoded to its raw bytes, the headline stream's sha256 and the four
-     wide "ix" streams' sha256s (through the image-layout encode);
+     reference) all decoded to their raw bytes, the best-mode ones
+     included, and re-encoded by the port where not best mode, the headline
+     stream's sha256 and the four wide "ix" streams' sha256s (through the
+     image-layout encode); the Landsat sample decoded to its pinned sha256
+     through the C++ walk, K7 and K5b, with the twins refused;
   5. the main paths through the public API with the launch counters reset:
      "ic" single image, 128-tile batch, u16 1024x1024x1 and u64 256x256x1
      round trips, "ix" round trips at every "ix" shape and the K5 branch of
@@ -47,7 +57,10 @@ card by K6.  Phases, each printed on earlier lines:
      K1 or K8 once a strip) and decode read per stream, host-to-host MB/s of
      the strip and whole-image encodes and decodes, K6's stitch beside the
      host stitch it replaces, and the peak device memory of the strip
-     encode against the whole-image encode.
+     encode against the whole-image encode; the Landsat sample's decode
+     host to host, split the same way, with a device profile; the probes'
+     path with all seven names, in this process (launch counts) and as
+     `python -m qb3_tpu_torch.probes` (an OK line per probe).
 
 Launch counts are set to 0 just before each main path and read just after;
 each kernel's count in the result is from the path that runs it.  Any
@@ -84,6 +97,13 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
     "encode_pack_image": ("qb3_tpu_torch/csrc/encode_image.cu",
                           "qb3_tpu/ops/encode_pallas.py:322"),
     "place_slabs": ("qb3_tpu_torch/csrc/place.cu", "qb3_tpu/ops/pack_pallas.py:388"),
+    "probe_dim0_dot": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:24"),
+    "probe_1d_dma": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:49"),
+    "probe_flatten": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:62"),
+    "probe_3d_dma": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:86"),
+    "probe_lane_write": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:108"),
+    "probe_lane_concat": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:123"),
+    "probe_flatten_big": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:138"),
 }
 STRIP_ROWS = 256  # rows a strip encodes and a strip read returns (phase 5)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -91,6 +111,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # Core GPU Architecture), 132 SMs, at the 1.98 GHz that the data sheet's
 # 67 TFLOP/s float32 implies (132 SMs * 128 lanes * 2 flops * 1.98e9)
 INT_OPS_PER_S = 132 * 64 * 1.98e9
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet): P1's product
 # 32-bit integer operations a VLC needs, at the fewest: code one value (the
 # rung 1..7 swap test, its two top bits, code and length) 5; place a code
 # or one bit (shift to the bit offset, OR into the word, advance) 3; decode
@@ -182,9 +203,10 @@ def walk_ops(vals, tbits: int) -> int:
 
 def bound(need) -> tuple:
     """(bound ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the integer operations over the INT32 rate."""
-    nbytes, ops = need
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    memory rate and the operations over their rate, the INT32 rate unless
+    need names another: (bytes, ops) or (bytes, ops, ops per second)."""
+    nbytes, ops, rate = (*need, INT_OPS_PER_S)[:3]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -196,8 +218,9 @@ def compare(name, got, want):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
-        d = (g.to(torch.int64) - w.to(torch.int64)).abs()
-        err = max(err, int(d.max()) if d.numel() else 0)
+        kind = torch.float64 if g.is_floating_point() else torch.int64
+        d = (g.to(kind) - w.to(kind)).abs()
+        err = max(err, d.max().item() if d.numel() else 0)
     check(err == 0, f"{name}: kernel disagrees with its twin (max abs err {err})")
     return err
 
@@ -428,23 +451,48 @@ def k8_phase(dev):
     return {"encode_pack_image": res}
 
 
-def walk_case(x, mode, dev):
-    """A stream without a sidecar of raster x, the host walk of its payload
-    and decode_groups' device inputs."""
+def stream_walk(stream, dev):
+    """A stream without a sidecar (any mode, 4-aligned), the host walk of
+    its payload and decode_groups' device inputs."""
     from qb3_tpu_torch import api, container, rle
-    from qb3_tpu_torch.constants import needs_rle
+    from qb3_tpu_torch.constants import TYPESIZES, needs_rle
 
-    stream = api.encode(x, mode=mode, device=dev)
     info = container.parse_headers(stream)
-    check(info.index is None and info.index_chunked is None, "a walk stream has a sidecar")
+    check(info.index is None and info.index_chunked is None and info.index_best is None,
+          "a walk stream has a sidecar")
     data = stream[info.data_offset:]
     if needs_rle(info.mode):
         data = rle.rle0_decode(data, rle.rle0_decoded_size(data))
-    h, w, nb = x.shape
-    nblocks = (h // 4) * (w // 4)
-    meta, path = api.walk_offsets(data, nblocks, nb, x.itemsize, info.mode)
+    tsize = TYPESIZES[info.dtype]
+    nblocks = (info.ysize // 4) * (info.xsize // 4)
+    meta, path = api.walk_offsets(data, nblocks, info.nbands, tsize, info.mode)
     return dict(stream=stream, info=info, data=data, meta=meta, path=path, nblocks=nblocks,
-                inp=api.walk_inputs(meta, api.padded_words(data), 8 * x.itemsize, dev))
+                inp=api.walk_inputs(meta, api.padded_words(data), 8 * tsize, dev))
+
+
+def kind_counts(kind) -> dict:
+    """The walk's kinds (offsets.KIND_*) counted by name."""
+    names = ("NORMAL", "ZERO", "BITS", "CF", "CF0", "IDX")
+    counts = np.bincount(np.asarray(kind).reshape(-1), minlength=6)
+    return {n: int(c) for n, c in zip(names, counts)}
+
+
+def k5_need(walked, a, tbits):
+    """(bytes, integer operations) K5 needs on these groups: the windows, the
+    per-group off, rung, kind and cf read once and the values written once;
+    16 decodes a coded group (walk_ops), a decode per IDX group's unique
+    (its distinct values), and the CF multiply-back (3 a value) or CF0
+    expansion (1 a value)."""
+    import torch
+
+    ng, tb = a["kind"].numel(), tbits
+    vals = walked.reshape(-1, 16).to(torch.int64)
+    idx = a["kind"] == 5
+    srt = vals[idx].sort(-1).values
+    uniques = int(idx.sum()) + int((srt[:, 1:] != srt[:, :-1]).sum())
+    ops = (walk_ops(walked, tb) + uniques * DECODE_OPS * wide(tb)
+           + 16 * (3 * int((a["kind"] == 3).sum()) + int((a["kind"] == 4).sum())))
+    return (4 * ng * a["nreg"] + ng * (2 + 1 + 1 + 8) + ng * 16 * tb // 8, ops)
 
 
 def k7_phase(dev, img, u64):
@@ -452,13 +500,14 @@ def k7_phase(dev, img, u64):
     the headline u8 tile and u64 1024x1024x1."""
     import torch
 
+    from qb3_tpu_torch import api
     from qb3_tpu_torch.benchutil import median_ms
     from qb3_tpu_torch.constants import Mode
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs, gather_slabs_plain
 
     res = None
     for label, x in (("u8 512x512x3", img), ("u64 1024x1024x1", u64)):
-        a = walk_case(x, Mode.FTL, dev)["inp"]
+        a = stream_walk(api.encode(x, mode=Mode.FTL, device=dev), dev)["inp"]
         words32, base, W, R = a["words32"], a["base"], a["nreg"], a["R"]
         got = gather_slabs(words32, base, W, R)
         err = compare("gather_slabs", got, gather_slabs_plain(words32, base, W))
@@ -480,6 +529,262 @@ def k7_phase(dev, img, u64):
         res = (max(err, res[0]),) + res[1:] if res else (err, ms, plain, need, lib)
         del got, padded, idx
     return {"gather_slabs": res}
+
+
+def k5_best_phase(dev, card):
+    """Phase 3d, best modes: K5a and K5b against their twins on best-mode
+    kinds, tolerance zero: K5b u16 on the Landsat sample's walk groups, K5a
+    u8 on the groups of a damaged 512x512x3 BASE_H stream (one bit flipped
+    where the walk meets CF, CF0 or IDX groups), K5b u32 / u64 on seeded
+    random windows with every kind, rung and cf in the domain.  Returns
+    {kernel: max abs err} and prints each case's kind counts, times and
+    bound."""
+    import torch
+
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.benchutil import (LANDSAT_SAMPLE, device_profile, headline_image,
+                                         median_ms)
+    from qb3_tpu_torch.constants import Mode
+    from qb3_tpu_torch.ops.gather_cuda import gather_slabs
+    from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain,
+                                                  wavefront_wide, wavefront_wide_plain)
+
+    cases = {}
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        c = stream_walk(f.read(), dev)
+    cases["u16 Landsat sample 512x512x8 CF_H"] = (c["inp"], c["meta"]["kind"], 16)
+    stream = api.encode(headline_image(), mode=Mode.BASE_H, device=dev)
+    info = api.container.parse_headers(stream)
+    n = len(stream) - info.data_offset
+    for pct in range(50, 100):  # the first flip from the middle on whose walk meets them
+        at = info.data_offset + n * pct // 100
+        c = stream_walk(stream[:at] + bytes([stream[at] ^ 1]) + stream[at + 1:], dev)
+        if (np.asarray(c["meta"]["kind"]) > 2).any():
+            break
+    check((np.asarray(c["meta"]["kind"]) > 2).any(), "no flip of the BASE_H stream met "
+          "best-mode groups")
+    cases[f"u8 512x512x3 BASE_H, bit {at * 8} flipped ({pct}%)"] = (
+        c["inp"], c["meta"]["kind"], 8)
+    for tb, nreg in ((32, 20), (64, 36)):
+        rng = np.random.default_rng(tb)
+        ng = 65536
+        kind = rng.integers(0, 6, ng)
+        t = torch.from_numpy(np.stack([rng.integers(0, 64, ng), rng.integers(0, tb, ng),
+                                       api.K5_KIND[kind]]).astype(np.int32)).to(dev)
+        words = rng.integers(0, 1 << 32, (ng + 64) * nreg, dtype=np.uint64).astype(np.uint32)
+        base = np.arange(ng, dtype=np.int32) * nreg
+        inp = dict(words32=torch.from_numpy(words.view(np.int32)).to(dev),
+                   base=torch.from_numpy(base).to(dev), off=t[0], rung=t[1], kind=t[2],
+                   nreg=nreg, R=api.gather_span(base, nreg),
+                   cf=torch.from_numpy(rng.integers(0, 1 << 64, ng, dtype=np.uint64)
+                                       .view(np.int64)).to(dev))
+        cases[f"u{tb} random windows, {ng} groups"] = (inp, kind, tb)
+    errs = {}
+    for label, (a, kind, tb) in cases.items():
+        regs = gather_slabs(a["words32"], a["base"], a["nreg"], a["R"])
+        args = (regs, a["off"], a["rung"], a["kind"], a["nreg"])
+        if tb == 8:
+            name, kern, plain = "wavefront8", wavefront8, wavefront8_plain
+        else:
+            name, kern, plain = "wavefront_wide", wavefront_wide, wavefront_wide_plain
+            args = args + (tb,)
+        got = kern(*args, a["cf"])
+        errs[name] = max(errs.get(name, 0), compare(name, got, plain(*args, a["cf"])))
+        ms = median_ms(lambda: kern(*args, a["cf"]))
+        plain_ms = median_ms(lambda: plain(*args, a["cf"]), 3)
+        p = device_profile(lambda: kern(*args, a["cf"]))
+        dev_ms = sum(v for op, v in p["per_op"].items() if f"{name}_kernel" in op)
+        need = k5_need(got, a, tb)
+        bms, by = bound(need)
+        log(f"K5 {name} best kinds, {label}: kinds {kind_counts(kind)}; equal, kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.4f} ms, bound {bms:.5f} ms "
+            f"by {by} ({need[0]} bytes, {need[1]} integer operations) ({card})")
+        del regs, got
+    return errs
+
+
+def probe_phase(dev, card):
+    """Phase 3f: P1-P7 at their probes' shapes against their twins and their
+    probes' own checks, each beside one PyTorch call computing the same
+    function where there is one.  Returns per-kernel results."""
+    import torch
+
+    from qb3_tpu_torch import probes
+    from qb3_tpu_torch.benchutil import device_profile, median_ms
+
+    def library(name, args):
+        if name == "dim0_dot":  # bf16 out, rounded: timed only
+            return None, lambda: torch.matmul(args[0].T, args[1])
+        if name == "1d_dma":
+            return (args[0][137:137 + 256].reshape(1, -1).clone,) * 2
+        if name in ("flatten", "flatten_big"):
+            return (args[0].reshape(1, -1).clone,) * 2
+        if name == "3d_dma":
+            return (args[0][:, 13:17, :].contiguous,) * 2
+        x = args[0]
+        if name == "lane_write":
+            fn = lambda: torch.nn.functional.pad(x, (64, 256 - 64 - x.shape[1]))  # noqa: E731
+            return fn, fn
+        # lane_concat: one broadcasting add, x (R, 1, W) + the copies' index
+        # (C, 1), built untimed, gives (R, C, W), viewed (free) as (R, C * W)
+        ar = torch.arange(args[1], dtype=x.dtype, device=x.device)[:, None]
+        fn = lambda: torch.add(x[:, None, :], ar).view(x.shape[0], -1)  # noqa: E731
+        return fn, fn
+
+    results = {}
+    for name in probes.PROBES:
+        kern, plain = probes.KERNELS[name]
+        args = probes.probe_inputs(name, dev)
+        got = kern(*args)
+        err = compare(name, got, plain(*args))
+        check(probes.PROBES[name](dev), f"probe {name}: its check failed on the card")
+        check_fn, lib_fn = library(name, args)
+        if check_fn is not None:
+            compare(name, check_fn(), got)
+        ms = median_ms(lambda: kern(*args))
+        plain_ms = median_ms(lambda: plain(*args), 5)
+        lib = median_ms(lib_fn) if lib_fn is not None else None
+        p = device_profile(lambda: kern(*args))
+        kname = "flatten_kernel" if name.startswith("flatten") else f"{kern.__name__}_kernel"
+        dev_ms = sum(v for op, v in p["per_op"].items() if kname in op)
+        tensors = [a for a in args if torch.is_tensor(a)]
+        if name == "dim0_dot":
+            need = (nbytes(*tensors, got), 2 * np.prod(args[0].shape) * args[1].shape[1],
+                    BF16_FLOPS_PER_S)
+        elif name in ("1d_dma", "3d_dma"):  # the words copied, the offset, the output
+            need = (2 * nbytes(got) + nbytes(args[1]), 0)
+        else:
+            need = (nbytes(*tensors, got), got.numel() if name == "lane_concat" else 0)
+        bms, by = bound(need)
+        log(f"P {name} {kern.__name__} {tuple(got.shape)}: equal to its twin, probe check OK, "
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.6f} ms by {by} ({card})")
+        results[f"probe_{name}"] = (err, ms, plain_ms, need, lib)
+    return results
+
+
+def probe_main_path(kernels) -> dict:
+    """The probes' main path, `python -m qb3_tpu_torch.probes` with all
+    seven names: in this process with the launch counts set to 0 just
+    before and read just after, then as its own process, which must print
+    an OK line for each probe and exit 0.  Returns the launch counts."""
+    from qb3_tpu_torch import probes
+
+    names = list(probes.PROBES)
+    for fn in kernels.values():
+        fn.launches = 0
+    check(probes.main(names) == 0, "a probe failed")
+    launches = {f"probe_{n}": probes.KERNELS[n][0].launches for n in names}
+    log(f"launch counts on the probes' path: {launches}")
+    check(all(v > 0 for v in launches.values()), "a probe's kernel was not launched")
+    out = subprocess.run([sys.executable, "-m", "qb3_tpu_torch.probes", *names], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    ok = [line for line in out.stdout.splitlines() if line.endswith(": OK")]
+    log(f"python -m qb3_tpu_torch.probes {' '.join(names)}: exit {out.returncode}, "
+        f"{len(ok)} OK lines")
+    check(out.returncode == 0 and len(ok) == len(names),
+          f"the probes' module: {out.stdout[-2000:]} {out.stderr[-2000:]}")
+    return launches
+
+
+class no_twins:
+    """Within the block, the twins of K5a, K5b and K7 raise if called: the
+    decode path inside runs on the kernels alone."""
+
+    def __enter__(self):
+        from qb3_tpu_torch.ops import gather_cuda, wavefront_cuda
+
+        def refuse(*_, **__):
+            raise AssertionError("a twin ran on the card's path")
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (wavefront_cuda, "wavefront8_plain"), (wavefront_cuda, "wavefront_wide_plain"),
+            (gather_cuda, "gather_slabs_plain"))]
+        for m, n, _ in self.saved:
+            setattr(m, n, refuse)
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def landsat_pin(dev, card, kernels) -> dict:
+    """Phase 4b: the Landsat sample decodes on the card to LANDSAT_SHA256
+    through the C++ walk, K7 and K5b, with the launch counts set to 0 just
+    before and read just after and the twins refused.  Returns the counts."""
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch.benchutil import LANDSAT_SAMPLE, LANDSAT_SHA256
+
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        stream = f.read()
+    for fn in kernels.values():
+        fn.launches = 0
+    with no_twins():
+        dec = qt.Decoder(stream, device=dev)
+        out = dec.read_data()
+    launches = {k: kernels[k].launches for k in ("gather_slabs", "wavefront8", "wavefront_wide")}
+    sha = hashlib.sha256(out.tobytes()).hexdigest()
+    check(sha == LANDSAT_SHA256, f"Landsat sample sha256 {sha} != {LANDSAT_SHA256}")
+    check(dec.decode_path == "native-walk", f"Landsat sample: decode path {dec.decode_path}")
+    check(launches == {"gather_slabs": 1, "wavefront8": 0, "wavefront_wide": 1},
+          f"Landsat sample: launches {launches}")
+    log(f"Landsat sample {out.shape} {out.dtype} (CF_H, no sidecar) sha256 {sha}: matches "
+        f"qb3_tpu; {dec.decode_path}, launch counts {launches}, no twin on the path ({card})")
+    return launches
+
+
+def landsat_split(dev, card):
+    """Phase 5: the Landsat sample's decode host to host, split as the walk
+    decodes are (host walk, upload, K7, K5, reconstruct, the rest), and a
+    device profile of it."""
+    import torch
+
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.benchutil import (LANDSAT_SAMPLE, device_profile, host_seconds,
+                                         sustained)
+    from qb3_tpu_torch.constants import HILBERT
+    from qb3_tpu_torch.ops.decode import reconstruct
+    from qb3_tpu_torch.ops.gather_cuda import gather_slabs
+    from qb3_tpu_torch.ops.wavefront_cuda import wavefront_wide
+
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        stream = f.read()
+    c = stream_walk(stream, dev)
+    a, info = c["inp"], c["info"]
+    h, w, nb = info.ysize, info.xsize, info.nbands
+    words = api.padded_words(c["data"])
+
+    def upload():
+        api.walk_inputs(c["meta"], words, 16, dev)
+        torch.cuda.synchronize()
+
+    regs = gather_slabs(a["words32"], a["base"], a["nreg"], a["R"])
+    k5 = (regs, a["off"], a["rung"], a["kind"], a["nreg"], 16, a["cf"])
+    g = api.decode_groups(**a, tbits=16, apply_step=True)
+    zero = torch.zeros(nb, dtype=torch.int64, device=dev)
+    rec = (g.reshape(c["nblocks"], nb, 16), zero, h, w, nb, info.order or HILBERT,
+           tuple(info.cband), 16)
+    t = {"host walk": host_seconds(lambda: api.walk_offsets(c["data"], c["nblocks"], nb, 2,
+                                                            info.mode)),
+         "upload": host_seconds(upload),
+         "K7": sustained(lambda: gather_slabs(a["words32"], a["base"], a["nreg"], a["R"]), 20),
+         "K5": sustained(lambda: wavefront_wide(*k5), 20),
+         "reconstruct": sustained(lambda: reconstruct(*rec), 20)}
+    t_all = host_seconds(lambda: qt.decode(stream, device=dev))
+    raw = h * w * nb * 2
+    log(f"walk decode Landsat sample 512x512x8 u16 CF_H, host to host: "
+        f"{raw / 1e6 / t_all:.2f} MB/s, {t_all * 1e3:.4f} ms; "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in t.items())
+        + f"; the rest {(t_all - sum(t.values())) * 1e3:.4f} ms; kinds "
+        f"{kind_counts(c['meta']['kind'])} ({card})")
+    p = device_profile(lambda: qt.decode(stream, device=dev))
+    kms = {k: sum(v for op, v in p["per_op"].items() if k in op)
+           for k in ("gather_slabs_kernel", "wavefront_wide_kernel")}
+    log(f"profile walk decode Landsat sample: wall {p['wall_ms']:.4f} ms, device busy "
+        f"{p['busy_ms']:.4f} ms (K7 {kms['gather_slabs_kernel']:.4f} ms, K5b "
+        f"{kms['wavefront_wide_kernel']:.4f} ms), idle {p['idle']:.3f}, {p['ops']:.0f} device "
+        f"ops, top {p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
 
 
 def strip_cases():
@@ -687,8 +992,9 @@ def strip_phase(dev, card, kernels, cases):
 
 
 def fixture_phase(dev):
-    """Phase 4a: the web fixtures, re-encoded by the port, and every one that
-    is not best mode decoded to its raw bytes."""
+    """Phase 4a: every web fixture decoded to its raw bytes, the three best-mode
+    ones included, and every one that is not best mode re-encoded by the
+    port (the best encode is not ported)."""
     from qb3_tpu_torch import api, container
     from qb3_tpu_torch.constants import Mode, is_best_mode
 
@@ -700,16 +1006,16 @@ def fixture_phase(dev):
     for c in cases:
         stream = base64.b64decode(c["stream"])
         info = container.parse_headers(stream)
-        if is_best_mode(info.mode):
-            log(f"fixture {c['name']}: left out, best mode is not ported "
-                "(ROADMAP.md Queue 1 item 12)")
-            continue
         raw = np.frombuffer(base64.b64decode(c["raw"]), np.dtype(c["dtype"]))
         raw = raw.reshape(c["shape"])
         dec = api.Decoder(stream, device=dev)
         check(dec.read_data().tobytes() == raw.tobytes(), f"fixture {c['name']}: decode differs")
         decoded += 1
         log(f"fixture {c['name']}: port decode ({dec.decode_path}) equals raw")
+        if is_best_mode(info.mode):
+            log(f"fixture {c['name']}: not re-encoded, the best encode is not ported "
+                "(ROADMAP.md Queue 1 item 12)")
+            continue
         mode = Mode.FTL if info.mode == Mode.STORED else info.mode
         got = api.encode(raw, mode=mode, quanta=info.quanta, coreband=info.cband,
                          index="ic" if info.index_chunked else False, device=dev)
@@ -721,7 +1027,7 @@ def fixture_phase(dev):
         matched += 1
     log(f"fixtures: {matched} of {len(cases)} streams re-encoded byte-exact, {decoded} "
         "decoded to their raw bytes")
-    check(decoded == 17, f"{decoded} fixtures decoded, 17 are not best mode")
+    check(decoded == len(cases) == 20, f"{decoded} of {len(cases)} fixtures decoded")
 
 
 def walk_phase(dev, card, img, wide_imgs, kernels, ic_stream, ix_stream):
@@ -765,7 +1071,7 @@ def walk_phase(dev, card, img, wide_imgs, kernels, ic_stream, ix_stream):
     for label, (x, mode) in walk_cases.items():
         # the walk decode, host to host, split into its stages: the C++ walk
         # and the upload on the host clock, K7, K5 and reconstruct on the card
-        c = walk_case(x, mode, dev)
+        c = stream_walk(qt.encode(x, mode=mode, device=dev), dev)
         check(c["stream"] == walk_streams[label], f"walk {label}: stream differs")
         a, tb, (h, w, nb) = c["inp"], 8 * x.itemsize, x.shape
         info = c["info"]
@@ -823,7 +1129,7 @@ def main() -> int:
     # the package beside this script (the checkout's root)
     sys.path.insert(0, ROOT)
     import qb3_tpu_torch as qt
-    from qb3_tpu_torch import _build, api
+    from qb3_tpu_torch import _build, api, probes
     from qb3_tpu_torch.benchutil import (HEADLINE_SHA256, WIDE_IMAGES, WIDE_SHA256,
                                          device_profile, headline_image, host_seconds,
                                          sustained, wide_image)
@@ -867,8 +1173,11 @@ def main() -> int:
     kres.update(ix_res)
     kres.update(k8_phase(dev))
     kres.update(k7_phase(dev, img, wide_image("u64 1024x1024x1")))
+    for name, err in k5_best_phase(dev, card).items():
+        kres[name] = (max(err, kres[name][0]),) + kres[name][1:]
     scases = strip_cases()
     kres.update(k6_phase(dev, card, scases["u8 4096x4096x3 FTL"][0]))
+    kres.update(probe_phase(dev, card))
 
     log("# phase 4: golden bytes")
     fixture_phase(dev)
@@ -883,12 +1192,15 @@ def main() -> int:
     log(f"wide ix streams ({', '.join(wide_imgs)}), through the image-layout encode: "
         "sha256s match qb3_tpu")
 
-    log("# phase 5: main paths")
     kernels = {"pack_groups_chunked": pack_groups_chunked,
                "extract_windows": extract_windows, "chunkwalk8": chunkwalk8,
                "wavefront_fused": wavefront_fused, "wavefront8": wavefront8,
                "wavefront_wide": wavefront_wide, "gather_slabs": gather_slabs,
-               "encode_pack_image": encode_pack_image, "place_slabs": place_slabs}
+               "encode_pack_image": encode_pack_image, "place_slabs": place_slabs,
+               **{f"probe_{n}": k for n, (k, _) in probes.KERNELS.items()}}
+    landsat_pin(dev, card, kernels)
+
+    log("# phase 5: main paths")
     ic_path = ("pack_groups_chunked", "extract_windows", "chunkwalk8")
     ix_path = ("pack_groups_chunked", "wavefront_fused", "wavefront8", "wavefront_wide")
     for fn in kernels.values():
@@ -1077,6 +1389,8 @@ def main() -> int:
     launches["gather_slabs"] = walk_phase(dev, card, img, wide_imgs, kernels, stream,
                                           ix_streams["u8 512x512x3"][0])["gather_slabs"]
     launches["place_slabs"] = strip_phase(dev, card, kernels, scases)["place_slabs"]
+    landsat_split(dev, card)
+    launches.update(probe_main_path(kernels))
 
     line = []
     for name in KERNELS:

@@ -31,13 +31,19 @@ SIGNATURES = {
     "qb3_extract_windows": [_P, _I64, _P, _I32, _I32, _P, _P],
     "qb3_chunkwalk": [_P, _I64, _P, _P, _I32, _P, _P, _I64, _I32, _I32, _I32,
                       _I32, _P, _P],
-    "qb3_wavefront8": [_P, _I64, _I32, _P, _P, _P, _P, _P],
-    "qb3_wavefront_wide": [_P, _I64, _I32, _I32, _P, _P, _P, _P, _P],
+    "qb3_wavefront8": [_P, _I64, _I32, _P, _P, _P, _P, _P, _P],
+    "qb3_wavefront_wide": [_P, _I64, _I32, _I32, _P, _P, _P, _P, _P, _P],
     "qb3_wavefront_fused": [_P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _I64, _I32,
                             _P, _P, _P, _P, _P, _P, _P],
     "qb3_encode_pack_image": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _U64, _I64, _P, _P],
     "qb3_gather_slabs": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
     "qb3_place_slabs": [_P, _P, _I64, _I32, _P, _I64, _P],
+    "qb3_probe_dim0_dot": [_P, _P, _I32, _I32, _I32, _P, _P],
+    "qb3_probe_dma_1d": [_P, _I64, _P, _I32, _I32, _P, _P],
+    "qb3_probe_flatten": [_P, _I32, _I32, _P, _P],
+    "qb3_probe_dma_3d": [_P, _I32, _I32, _I32, _P, _I32, _P, _P],
+    "qb3_probe_lane_write": [_P, _I32, _I32, _I32, _I32, _P, _P],
+    "qb3_probe_lane_concat": [_P, _I32, _I32, _I32, _P, _P],
 }
 
 

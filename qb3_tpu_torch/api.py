@@ -14,13 +14,16 @@ image repacking, container framing, the RLE0 post-pass and the fallbacks
 multiples of 4 take the image-layout phase A (ops/encode_image.py) and K8
 (ops/encode_cuda.py) instead, to the same bytes (takes_fused).
 
-Slices covered: FTL, BASE_H and BASE_Z (and their RLE forms) with no
-sidecar, the self-contained "ic" sidecar or the "ix" sidecar (per-group bit
-lengths); the Decoder decodes stored, "ic" and "ix" streams, and streams
-without a usable sidecar through the serial walk on the host (native.py, or
+Slices covered: the encode of FTL, BASE_H and BASE_Z (and their RLE forms)
+with no sidecar, the self-contained "ic" sidecar or the "ix" sidecar
+(per-group bit lengths); the Decoder decodes stored, "ic" and "ix" streams,
+best-mode streams (CF, CF_H and their RLE forms) with the "ib" sidecar
+(per-group lengths and decode metadata), and streams of any mode without a
+usable sidecar through the serial walk on the host (native.py, or
 offsets.py where the C++ walk cannot be built), K7 and K5 on the device.
-Everything else (best mode) raises NotImplementedError naming the
-ROADMAP.md item that ports it; nothing runs on another device instead.
+The best encode and the decode of best streams' "ic" sidecar raise
+NotImplementedError naming the ROADMAP.md item that ports them; nothing
+runs on another device instead.
 """
 
 from __future__ import annotations
@@ -47,11 +50,11 @@ from .constants import (
 from .errors import QB3DataError, QB3Error, QB3HeaderError, QB3ShapeError
 from .ops.bitpack import group_bits_bound, pack_groups_auto, words_to_bytes
 from .ops.chunkwalk_cuda import ic_walk_params
-from .offsets import KIND_BITS, parse_offsets
+from .offsets import KIND_CF, KIND_CF0, parse_offsets
 from .ops.decode import (_NREG_IX, K5_KIND, decode_groups, decode_indexed_narrow,
                          payload_words, reconstruct)
 from .ops.decode_chunked import (IC_DEFAULT_K, chunk_spans, decode_chunked_auto,
-                                 pack_ic, parse_ic)
+                                 pack_ic, parse_ic, parse_ic_best)
 from .ops.encode import encode_fast_blocks
 from .ops.encode_cuda import encode_pack_image, image_pack_args
 from .ops.encode_image import phase_a_image
@@ -69,7 +72,9 @@ _TORCH_SIGNED = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _NP_SIGNED = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 
 _NOT_PORTED = {
-    "best": "ROADMAP.md Queue 1 item 12 (slice 4: best mode, ib and ic-best)",
+    "best": ("ROADMAP.md Queue 1 item 12 (best mode's rest: the best encode and its ib / "
+             "ic-best sidecars, the ic-best decode, the batch best decode, the strips' "
+             "best modes)"),
 }
 
 
@@ -513,23 +518,56 @@ def walk_offsets(data: bytes, nblocks: int, nb: int, tsize: int, mode: int,
 
 
 def group_inputs(meta: dict, n32: int, tbits: int, device) -> dict:
-    """decode_groups' per-group arguments from a walk's result over a stream
-    of n32 u32 words: each group's window word, bit within it, rung and K5
-    kind, uploaded in one (4, ngroups) int32 copy; nreg and K7's span R
-    computed here.  A walk that met best-mode group codes (CF, CF0 or IDX:
-    a damaged BASE stream can) raises NotImplementedError."""
-    kind = meta["kind"].reshape(-1)
-    if kind.size and int(kind.max()) > KIND_BITS:
-        raise not_ported("best")
+    """decode_groups' per-group arguments from a walk's result, or an "ib"
+    sidecar's, over a stream of n32 u32 words: each group's window word,
+    bit within it, rung and K5 kind, uploaded in one (4, ngroups) int32
+    copy, and cf, None unless a group is CF or CF0, else in the same copy
+    (cf as u64, then the four int32 rows, viewed apart on the device); nreg
+    and K7's span R computed here.  The window is _NREG_IX words for every
+    kind and stream, the walk's and the sidecar's alike: it holds the
+    longest group from any bit phase."""
+    k5 = K5_KIND[meta["kind"].reshape(-1)]
     val_pos = meta["val_pos"].reshape(-1)
+    n = k5.size
     # a window at or past the stream's end reads zeros wherever it starts,
     # so the word index is kept within int32
     base = np.minimum(val_pos >> 5, n32)
     nreg = _NREG_IX[tbits]
-    host = np.stack([base, val_pos & 31, meta["vrung"].reshape(-1), K5_KIND[kind]])
-    t = torch.from_numpy(host.astype(np.int32)).to(device)
-    return dict(base=t[0], off=t[1], rung=t[2], kind=t[3], nreg=nreg,
+    rows = np.stack([base, val_pos & 31, meta["vrung"].reshape(-1), k5])
+    cf = None
+    if ((k5 == K5_KIND[KIND_CF]) | (k5 == K5_KIND[KIND_CF0])).any():
+        host = np.empty(3 * n, np.int64)
+        host[:n] = meta["cf"].reshape(-1).astype(np.uint64).view(np.int64)
+        host[n:].view(np.int32).reshape(4, n)[:] = rows
+        t = torch.from_numpy(host).to(device)
+        cf, rows = t[:n], t[n:].view(torch.int32).reshape(4, n)
+    else:
+        rows = torch.from_numpy(rows.astype(np.int32)).to(device)
+    return dict(base=rows[0], off=rows[1], rung=rows[2], kind=rows[3], cf=cf, nreg=nreg,
                 R=gather_span(base, nreg))
+
+
+def _parse_best_sidecar(buf: bytes, ngroups: int):
+    """The "ib" sidecar (qb3_tpu api._parse_best_sidecar): per group a u16
+    bit length and a u16 meta (kind | vrung << 3 | prefix << 9), then a u16
+    biased CF (cf - 2) for each CF / CF0 group -> group_inputs' dict (kind,
+    val_pos, vrung, cf flat arrays, and end_pos, the lengths' total), or
+    None if the sidecar is inconsistent."""
+    arr = np.frombuffer(buf, dtype="<u2")
+    if arr.size < 2 * ngroups:
+        return None
+    glens = arr[:ngroups].astype(np.int64)
+    meta = arr[ngroups: 2 * ngroups].astype(np.int32)
+    kind = (meta & 7).astype(np.uint8)
+    iscf = (kind == KIND_CF) | (kind == KIND_CF0)
+    if arr.size != 2 * ngroups + int(iscf.sum()):
+        return None
+    cf = np.zeros(ngroups, np.uint64)
+    cf[iscf] = arr[2 * ngroups:].astype(np.uint64) + 2
+    ends = np.cumsum(glens)
+    return dict(kind=kind, val_pos=ends - glens + ((meta >> 9) & 127),
+                vrung=((meta >> 3) & 63).astype(np.int32), cf=cf,
+                end_pos=int(ends[-1]) if ngroups else 0)
 
 
 def walk_inputs(meta: dict, words: np.ndarray, tbits: int, device) -> dict:
@@ -621,15 +659,14 @@ class Decoder:
 
     def _decode_core(self, data: bytes, h: int, w: int, nb: int, uns_dt) -> np.ndarray:
         info = self.info
-        if is_best_mode(info.mode):
-            raise not_ported("best")
         nblocks = ((h + B - 1) // B) * ((w + B - 1) // B)
         tbits = 8 * np.dtype(uns_dt).itemsize
         order, cband = info.order or HILBERT, tuple(info.cband)
         apply_step = info.mode != Mode.FTL
-        # like qb3_tpu, RLE-wrapped streams (not a fast mode) take the walk
-        # whatever sidecar they carry
-        fast = is_fast_mode(info.mode)
+        # like qb3_tpu, RLE-wrapped fast streams (not a fast mode) take the
+        # walk whatever sidecar they carry; best streams, RLE-wrapped or not,
+        # their "ic" or "ib" sidecar, or the walk
+        fast, best = is_fast_mode(info.mode), is_best_mode(info.mode)
         if info.index_chunked is not None and fast:
             meta = parse_ic(info.index_chunked, nblocks, nb)
             if meta is not None:
@@ -638,12 +675,18 @@ class Decoder:
                 self.decode_path = "ic"
                 return self._end_check(from_carrier(img, tbits // 8),
                                        len(data) * 8 - meta[3])
+        if info.index_chunked is not None and best and \
+                parse_ic_best(info.index_chunked, nblocks, nb) is not None:
+            raise not_ported("best")  # qb3_tpu's "ic-best" branch
 
         glens = None
         if info.index is not None and fast:
             cand = np.frombuffer(info.index, dtype="<u2")
             if cand.size == nblocks * nb and int(cand.astype(np.int64).sum()) < 1 << 31:
                 glens = cand.astype(np.int32)
+        sidecar = None
+        if info.index_best is not None and best:
+            sidecar = _parse_best_sidecar(info.index_best, nblocks * nb)
         meta = None
         if glens is not None:
             nreg, R = _fused_ix_params(glens, tbits)
@@ -651,6 +694,10 @@ class Decoder:
             g = decode_indexed_narrow(words32, torch.from_numpy(glens).to(self.device),
                                       nblocks, nb, apply_step, tbits, nreg=nreg, fused=R)
             self.decode_path, end_pos = "ix", int(glens.sum())
+        elif sidecar is not None:
+            inp = walk_inputs(sidecar, padded_words(data), tbits, self.device)
+            g = decode_groups(**inp, tbits=tbits, apply_step=apply_step)
+            self.decode_path, end_pos = "ib", sidecar["end_pos"]
         else:
             meta, path = walk_offsets(data, nblocks, nb, tbits // 8, info.mode)
             inp = walk_inputs(meta, padded_words(data), tbits, self.device)

@@ -18,6 +18,13 @@ import torch
 # and re-derived from both packages by tests/test_torch_api.py
 HEADLINE_SHA256 = "0d9874e5145ee36edf488c1e5525407266c2f652f42903571313940e791b09d9"
 
+# the repository's Landsat-style sample, a CF_H stream without a sidecar of a
+# 512x512x8 u16 tile (the shape of the bench row ftl-u16x8-landsat), and the
+# sha256 of its decoded array's bytes: computed with qb3_tpu.decode and
+# re-derived from both packages by tests/test_torch_walk.py
+LANDSAT_SAMPLE = "web/sample_landsat8.qb3"
+LANDSAT_SHA256 = "ae926ac98a0bcc7b89b9d83f3c774597d283f10df448bb4a77f90c61aa1ba2a9"
+
 # the wide rasters of the bench rows ftl-u16, ftl-u16x8-landsat, ftl-u32 and
 # ftl-u64: label -> headline_image arguments (h, w, bands, seed, dtype)
 WIDE_IMAGES = {

@@ -1,8 +1,9 @@
 // Shared QB3 VLC primitives for the CUDA kernels of qb3_tpu_torch.
 //
 // Ported from the JAX package's arithmetic decoders: _vlc32 / _vlc32w /
-// _vlc64 (qb3_tpu/ops/wavefront_pallas.py), _vlc_decode_arith, dsw_arith
-// and the step restore (qb3_tpu/ops/decode.py), and from its encoder
+// _vlc64 (qb3_tpu/ops/wavefront_pallas.py), _vlc_decode_arith,
+// _vlc_decode_plain, _vlc_decode_single, dsw_arith and the step restore
+// (qb3_tpu/ops/decode.py), and from its encoder
 // _enc_pair (qb3_tpu/ops/encode_pallas.py).  On a TPU these work on int32
 // lanes because Mosaic has no 64-bit integers; here they take native
 // unsigned words.
@@ -47,6 +48,38 @@ __device__ __forceinline__ uint64_t vlc64(uint64_t w, int rung, int* len) {
   *len = shrt ? r : r + 1 + n;
   if (r <= 7 && (v >> 32) == 0) {
     const uint64_t a = r == 1 ? 1ull : (r == 2 ? 3ull : rbit - 1);
+    v = v == a ? a + 1 : (v == a + 1 ? a : v);
+  }
+  return v;
+}
+
+// Plain VLC decode at `rung` (0 is taken as 1) from a 64-bit stream window
+// `w`: the base 3-range code with no swap, the counterpart of
+// _vlc_decode_plain (qb3_tpu/ops/decode.py).  Index codes are read with it
+// at rung 2 (the IDX_DEC table).  Sets *len up to 65 at rung 63.
+__device__ __forceinline__ uint64_t vlc_plain64(uint64_t w, int rung, int* len) {
+  const int r = rung < 1 ? 1 : rung;
+  const uint64_t rbit = 1ull << r;
+  const uint64_t vmask = rbit - 1;
+  const bool shrt = (w & 1ull) == 0;
+  const int n = static_cast<int>((w >> 1) & 1ull);
+  *len = shrt ? r : r + 1 + n;
+  return shrt ? (w & vmask) >> 1 : ((w >> 2) & vmask) | (n ? rbit : rbit >> 1);
+}
+
+// Single-value context decode (CF values, index uniques; the DEC_SINGLE
+// table and its computed rungs), the counterpart of _vlc_decode_single /
+// _dec_value(..., single): rung 0 is one literal bit, rungs 3..7 swap the
+// middle pair 2^r-1 <-> 2^r, other rungs decode plain.  No rung-63 extra
+// bit: *len may be 65, and the value keeps what the 64 bits give.
+__device__ __forceinline__ uint64_t vlc_single64(uint64_t w, int rung, int* len) {
+  if (rung == 0) {
+    *len = 1;
+    return w & 1ull;
+  }
+  uint64_t v = vlc_plain64(w, rung, len);
+  if (rung >= 3 && rung <= 7) {
+    const uint64_t a = (1ull << rung) - 1;
     v = v == a ? a + 1 : (v == a + 1 ? a : v);
   }
   return v;

@@ -1,11 +1,12 @@
 """Value decoding primitives, the "ix" sidecar decode, the decode of groups
 located by the serial walk, and image reconstruction.
 
-PyTorch counterpart of qb3_tpu/ops/decode.py without its best-mode kinds:
-the arithmetic codeswitch and group-VLC decoders, the "ix" decode
-(decode_indexed_narrow: K4, or gathered windows and K5, with the XLA walk's
-formulation as their twins' body), the decode of fast-mode groups that the
-serial walk located (decode_groups: K7 gathers the windows, K5 walks them),
+PyTorch counterpart of qb3_tpu/ops/decode.py: the arithmetic codeswitch
+and VLC decoders, the "ix" decode (decode_indexed_narrow: K4, or gathered
+windows and K5, with the XLA walk's formulation as their twins' body), the
+decode of the groups that the serial walk or an "ib" sidecar located, the
+best modes' CF, CF0 and IDX groups included (decode_groups: K7 gathers the
+windows, K5 walks them),
 and the step from decoded mag-sign groups to the image — the per-band
 prefix-sum un-delta
 (QB3decode.h:717-722), the inverse scan, and the band-delta add pass
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..constants import B, B2, curve_offsets
-from ..offsets import KIND_BITS, KIND_NORMAL, KIND_ZERO
+from ..offsets import KIND_BITS, KIND_CF, KIND_CF0, KIND_IDX, KIND_NORMAL, KIND_ZERO
 from .bitutils import M32, peek64, smag, srl, step_flip_index, words_u32, words_u64, wrap
 from .encode import block_origins
 
@@ -80,6 +81,30 @@ def _vlc_decode_arith(w, rung):
     return v, ln
 
 
+def _vlc_decode_plain(w, rung):
+    """Base 3-range decode with no swap (index codes at rung 2, the IDX_DEC
+    table) -> (value, length); rung 0 is taken as 1."""
+    r = rung.clamp(min=1)
+    rbit = 1 << r
+    vmask = rbit - 1
+    short = (w & 1) == 0
+    n = (w >> 1) & 1
+    v = torch.where(short, srl(w & vmask, 1),
+                    srl(w, 2) & vmask | torch.where(n == 0, srl(rbit, 1), rbit))
+    return v, torch.where(short, r, r + 1 + n)
+
+
+def _vlc_decode_single(w, rung):
+    """Single-value context decode (CF values, index uniques; the
+    DEC_SINGLE table and its computed rungs): the plain decode with the
+    rung 3..7 middle swap, rung 0 one literal bit -> (value, length)."""
+    v, ln = _vlc_decode_plain(w, rung)
+    a = (1 << rung.clamp(0, 7)) - 1
+    do = (rung >= 3) & (rung <= 7)
+    v = torch.where(do & (v == a), a + 1, torch.where(do & (v == a + 1), a, v))
+    return torch.where(rung == 0, w & 1, v), torch.where(rung == 0, 1, ln)
+
+
 def step_restore(g, rung, is_group):
     """BASE-mode step-bit restore (QB3decode.h:285-289) of (..., B2)
     mag-sign groups: flip bit `rung` of value #ones where the rung bits
@@ -108,14 +133,29 @@ def window64(regs, o):
 
 # ------------------------------------------------- "ix" sidecar decode
 
-_NREG_IX = {8: 8, 16: 12, 32: 20, 64: 36}  # window words: worst group, any phase
+# Window words per group: the longest group from any bit phase.  The walk
+# decode (decode_groups) starts a window at the word of the first value bit,
+# so up to 31 bits of phase come before the group's value bits, and every
+# kind's value bits fit the longest NORMAL group's, 16 codes at the top
+# rung r = tbits - 1 of r + 2 bits each (u64: rung 63's 65-bit form):
+#   u8  NORMAL 16 * 9 = 144; CF (rung <= 6) 16 * 8 = 128; IDX 16 index
+#       codes of <= 4 bits + 8 uniques of <= 9 = 136 -> 31 + 144 = 175 <= 256
+#   u16 NORMAL 272; CF 256; IDX 64 + 8 * 17 = 200 -> 303 <= 12 * 32 = 384
+#   u32 NORMAL 528; CF 512; IDX 64 + 8 * 33 = 328 -> 559 <= 20 * 32 = 640
+#   u64 NORMAL 1040; CF (rung <= 62) 1024; IDX 64 + 8 * 65 = 584
+#       -> 1071 <= 36 * 32 = 1152
+# BITS and CF0 take 16 bits.  So a best-mode group never reads past its
+# window, where K7 would give zeros and qb3_tpu the stream's bits; the "ix"
+# decode sizes it down from its sidecar (api._indexed_nreg).
+_NREG_IX = {8: 8, 16: 12, 32: 20, 64: 36}
 _GMAX_IX = {8: 150, 16: 280, 32: 540, 64: 1056}  # longest group in bits
 
-# K5's kind codes (1 group-coded, 2 literal bits, 0 all zero), indexed by
-# the walk's kind (offsets.KIND_NORMAL, KIND_ZERO, KIND_BITS): the one place
+# K5's kind codes (0 all zero, 1 group-coded, 2 literal bits, 3 CF, 4 CF0,
+# 5 IDX), indexed by the walk's kind (offsets.KIND_*; 6 and 7, which only a
+# damaged "ib" sidecar gives, decode as zero, as in qb3_tpu): the one place
 # where the two codes meet
-K5_KIND = np.array([{KIND_NORMAL: 1, KIND_ZERO: 0, KIND_BITS: 2}[k] for k in range(3)],
-                   np.int32)
+K5_KIND = np.array([{KIND_NORMAL: 1, KIND_ZERO: 0, KIND_BITS: 2, KIND_CF: 3, KIND_CF0: 4,
+                     KIND_IDX: 5}.get(k, 0) for k in range(8)], np.int32)
 
 
 def indexed_meta(words64, glens, nblocks: int, nbands: int, ubits: int):
@@ -269,30 +309,36 @@ def decode_indexed_narrow(words32, glens, nblocks: int, nbands: int,
     return step_restore(g, rung, kind == 1) if apply_step else g
 
 
-def decode_groups(words32, base, off, rung, kind, nreg: int, R: int, tbits: int,
+def decode_groups(words32, base, off, rung, kind, cf, nreg: int, R: int, tbits: int,
                   apply_step: bool):
-    """The decode of fast-mode groups that the serial walk located ->
-    (ngroups, B2) int64 mag-sign values.
+    """The decode of the groups that the serial walk (or an "ib" sidecar)
+    located -> (ngroups, B2) int64 mag-sign values: u32 patterns for u8 and
+    u16, u64 for u32 and u64, as qb3_tpu's are.
 
     Counterpart of qb3_tpu's decode_groups_fused (u8/u16) and decode_groups
-    (u32/u64) for the kinds NORMAL, ZERO and BITS.  words32 (n32,) int32
-    stream words; base (ngroups,) int32 each group's window word (its first
-    value bit >> 5), off the bit within it (& 31), rung and kind (K5's codes,
-    K5_KIND) (ngroups,) int32; nreg window words per group, enough for the
-    longest group from any bit phase (_NREG_IX), so no value reads past its
-    window; R the words each K7 block stages (gather_span).  K7 gathers the
-    windows (zero past the stream), K5a (u8) or K5b walks them, and BASE
-    modes restore the step bit.  Each wrapper runs its kernel on a CUDA
-    tensor and its plain twin on a CPU tensor.
+    (u32/u64) for every kind: NORMAL, ZERO, BITS and the best modes' CF, CF0
+    and IDX.  words32 (n32,) int32 stream words; base (ngroups,) int32 each
+    group's window word (its first value bit >> 5), off the bit within it
+    (& 31), rung and kind (K5's codes, K5_KIND) (ngroups,) int32; cf
+    (ngroups,) int64 u64 common factors (read for CF and CF0 groups), or
+    None where no group is either; nreg
+    window words per group, enough for the longest group from any bit phase
+    (_NREG_IX), so no value reads past its window; R the words each K7
+    block stages (gather_span).  K7 gathers the windows (zero past the
+    stream), K5a (u8) or K5b walks them, CF groups' step restore and
+    multiply-back and CF0 groups' expansion included, and BASE and best
+    modes restore the step bit of the group-coded (kind 1) groups.  Each
+    wrapper runs its kernel on a CUDA tensor and its plain twin on a CPU
+    tensor.
     """
     from .gather_cuda import gather_slabs
     from .wavefront_cuda import wavefront8, wavefront_wide
 
     regs = gather_slabs(words32, base, nreg, R)
     if tbits == 8:
-        g = wavefront8(regs, off, rung, kind, nreg).to(torch.int64) & M32
+        g = wavefront8(regs, off, rung, kind, nreg, cf).to(torch.int64) & M32
     else:
-        g = wavefront_wide(regs, off, rung, kind, nreg, tbits)
+        g = wavefront_wide(regs, off, rung, kind, nreg, tbits, cf)
     return step_restore(g, rung.to(torch.int64), kind == 1) if apply_step else g
 
 

@@ -52,7 +52,7 @@ def parse_ic(buf: bytes, nblocks: int, nbands: int):
     head = int.from_bytes(buf[:2], "little")
     k = head & ~(_IC_WIDE | _IC_BEST)
     wide = bool(head & _IC_WIDE)
-    if k < 1 or head & _IC_BEST:  # best-mode anchors are not ported
+    if k < 1 or head & _IC_BEST:  # best-mode anchors: parse_ic_best
         return None
     nchunks = -(-nblocks // k)
     sbytes = 4 if wide else 2
@@ -67,6 +67,39 @@ def parse_ic(buf: bytes, nblocks: int, nbands: int):
     if ends[-1] >= 1 << 31:  # int32 bit cursors in the device walk
         return None
     return k, starts, entry.astype(np.int32), int(ends[-1])
+
+
+def parse_ic_best(buf: bytes, nblocks: int, nbands: int):
+    """The best modes' "ic" payload (qb3_tpu's parse_ic_best): parse_ic's
+    plus per-chunk per-band u16le entry pcf -> (k_blocks, starts, entry
+    rungs, entry pcf (nchunks, nbands) int64, total_bits), or None if
+    inconsistent.  Only parsed: the decode it drives is not ported, and
+    api.Decoder raises on a stream where this parses."""
+    if len(buf) < 2:
+        return None
+    head = int.from_bytes(buf[:2], "little")
+    if not head & _IC_BEST:
+        return None
+    k = head & ~(_IC_WIDE | _IC_BEST)
+    wide = bool(head & _IC_WIDE)
+    if k < 1:
+        return None
+    nchunks = -(-nblocks // k)
+    sbytes = 4 if wide else 2
+    if len(buf) != 2 + nchunks * (sbytes + 3 * nbands):
+        return None
+    spans = np.frombuffer(buf, dtype="<u4" if wide else "<u2",
+                          count=nchunks, offset=2).astype(np.int64)
+    off = 2 + sbytes * nchunks
+    entry = np.frombuffer(buf, dtype=np.uint8, count=nchunks * nbands,
+                          offset=off).reshape(nchunks, nbands)
+    pcf = np.frombuffer(buf, dtype="<u2", count=nchunks * nbands,
+                        offset=off + nchunks * nbands).reshape(nchunks, nbands)
+    ends = np.cumsum(spans)
+    starts = ends - spans
+    if ends[-1] >= 1 << 31:
+        return None
+    return k, starts, entry.astype(np.int32), pcf.astype(np.int64), int(ends[-1])
 
 
 def chunk_spans(glens: np.ndarray, rungs: np.ndarray, entry_runbits: np.ndarray,

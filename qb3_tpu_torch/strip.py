@@ -24,7 +24,9 @@ fallback for incompressible images is not available in streaming mode
 scan order and the "ix" / "ic" sidecars match Encoder.  The decoder walks
 the stream strip by strip on the host (the C++ walk, or the Python one) and
 decodes each strip with K7 + K5 and reconstruct on the device.  Best modes
-raise NotImplementedError, as in api.py.
+raise NotImplementedError in both, naming ROADMAP.md item 12 (StripEncoder
+as the best encode does, StripDecoder for want of the carried previous CF;
+api.Decoder decodes whole best-mode streams).
 """
 
 from __future__ import annotations

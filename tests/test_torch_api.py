@@ -152,15 +152,17 @@ def test_tiles_equal(dtype, mode):
 
 
 def test_not_ported_paths_raise():
-    """Best mode raises, naming its ROADMAP item; a stream without a sidecar
-    decodes (the serial walk) to qb3_tpu's array."""
+    """The best encode and the decode of a best stream's "ic" sidecar raise,
+    naming their ROADMAP item; streams without a sidecar, FTL and best
+    (CF_H) alike, decode (the serial walk) to qb3_tpu's arrays."""
     img = corpus.natural8(16, 16, 1, seed=18)
-    np.testing.assert_array_equal(qt.decode(qb3_tpu.encode(img), device=CPU)[0],
-                                  qb3_tpu.decode(qb3_tpu.encode(img))[0])
-    for stream in (qb3_tpu.encode(img, mode=Mode.CF_H),
-                   qb3_tpu.encode(img, mode=Mode.CF_H, index="ic")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-            qt.decode(stream, device=CPU)
+    for stream in (qb3_tpu.encode(img), qb3_tpu.encode(img, mode=Mode.CF_H)):
+        np.testing.assert_array_equal(qt.decode(stream, device=CPU)[0],
+                                      qb3_tpu.decode(stream)[0])
+    stream = qb3_tpu.encode(img, mode=Mode.CF_H, index="ic")
+    assert container.parse_headers(stream).index_chunked is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
+        qt.decode(stream, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
         qt.encode(img, mode=Mode.CF_H, device=CPU)
 

@@ -1,8 +1,10 @@
 """The CUDA kernels K1 (pack), K2 (chunk walk), K3 (window copy), K4 (fused
-"ix" walk), K5a / K5b (walks on gathered windows), K6 (slab placement), K7
-(window gather) and K8 (fused image-layout VLC + pack) of qb3_tpu_torch
-against their plain PyTorch twins, and the public decode and the strips on
-the card against the CPU's.
+"ix" walk), K5a / K5b (walks on gathered windows, the best modes' CF, CF0
+and IDX groups included), K6 (slab placement), K7 (window gather), K8
+(fused image-layout VLC + pack) and P1-P7 (the Mosaic probes) of
+qb3_tpu_torch against their plain PyTorch twins, and the public decode
+(best-mode streams included) and the strips on the card against the
+CPU's.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither jax nor qb3_tpu, so it also runs on a machine without JAX:
@@ -10,17 +12,21 @@ neither jax nor qb3_tpu, so it also runs on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import base64
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import qb3_tpu_torch as qt
-from qb3_tpu_torch import container
+from qb3_tpu_torch import container, probes
 from qb3_tpu_torch.api import (_fused_ix_params, ic_inputs, padded_words, stream_words,
                                to_carrier)
 from qb3_tpu_torch.batch import _flat_tile_layout
-from qb3_tpu_torch.benchutil import headline_image
-from qb3_tpu_torch.constants import HILBERT, TYPESIZES, ZCURVE, Mode
+from qb3_tpu_torch.benchutil import LANDSAT_SAMPLE, headline_image
+from qb3_tpu_torch.constants import HILBERT, TYPESIZES, ZCURVE, Mode, is_best_mode
 from qb3_tpu_torch.ops import bitpack, pack_cuda
 from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8, chunkwalk8_plain
 from qb3_tpu_torch.ops.decode import ix_parse, ix_regs, payload_words
@@ -36,6 +42,9 @@ from qb3_tpu_torch.ops.place_cuda import place_slabs, place_slabs_plain
 from qb3_tpu_torch.stitch import stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -397,3 +406,67 @@ def test_cuda_strips_equal_cpu(cuda, dtype, mode, index):
     assert sd.decode_path == "native-walk"
     assert gather_slabs.launches == k7 + -(-h // 32)
     np.testing.assert_array_equal(np.concatenate(rows), img)
+
+
+@pytest.mark.parametrize("with_cf", [True, False])
+@pytest.mark.parametrize("tbits", [8, 16, 32, 64])
+def test_k5_best_kinds_match_twin(cuda, tbits, with_cf):
+    """Random windows, offsets, rungs and common factors over every kind, the
+    best modes' CF (3), CF0 (4) and IDX (5) included; without cf (the
+    decode passes None where no group is CF or CF0) CF groups read 0."""
+    rng = np.random.default_rng(100 + tbits)
+    n, nreg = 6000, {8: 8, 16: 12, 32: 20, 64: 36}[tbits]
+    args = tuple(torch.from_numpy(x.astype(np.int32)).to(cuda) for x in (
+        rng.integers(-2**31, 2**31, (n, nreg), dtype=np.int64), rng.integers(0, 64, n),
+        rng.integers(0, tbits, n), rng.integers(0, 6, n))) + (nreg,)
+    cf = torch.from_numpy(rng.integers(0, 1 << 64, n, dtype=np.uint64).view(np.int64)).to(cuda)
+    cf = cf if with_cf else None
+    before = wavefront8.launches + wavefront_wide.launches
+    if tbits == 8:
+        got, want = wavefront8(*args, cf), wavefront8_plain(*args, cf)
+    else:
+        got, want = wavefront_wide(*args, tbits, cf), wavefront_wide_plain(*args, tbits, cf)
+    torch.cuda.synchronize()
+    assert wavefront8.launches + wavefront_wide.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def _best_streams():
+    """The best-mode web fixtures and the Landsat sample: name -> stream."""
+    with open(os.path.join(ROOT, "web", "test", "fixtures.js")) as f:
+        text = f.read()
+    out = {c["name"]: base64.b64decode(c["stream"])
+           for c in json.loads(text[text.index("["): text.rindex("]") + 1])}
+    out = {k: v for k, v in out.items() if is_best_mode(container.parse_headers(v).mode)}
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        out["landsat"] = f.read()
+    return out
+
+
+def test_cuda_best_decode_equals_cpu(cuda):
+    """Best-mode streams without a sidecar: the C++ walk, then K7 and K5 on
+    the card, decode to the CPU's arrays (the twins)."""
+    streams = _best_streams()
+    assert len(streams) == 4
+    for name, stream in streams.items():
+        k7, k5 = gather_slabs.launches, wavefront8.launches + wavefront_wide.launches
+        dec = qt.Decoder(stream, device=cuda)
+        out = dec.read_data()
+        assert dec.decode_path == "native-walk", name
+        assert gather_slabs.launches == k7 + 1 and \
+            wavefront8.launches + wavefront_wide.launches == k5 + 1, name
+        np.testing.assert_array_equal(out, qt.decode(stream, device="cpu")[0], err_msg=name)
+
+
+@pytest.mark.parametrize("name", list(probes.PROBES))
+def test_probe_kernels_match_twins(cuda, name):
+    """P1-P7 at their probes' shapes against their twins, then the probe on
+    the card passes its own check."""
+    kernel, plain = probes.KERNELS[name]
+    args = probes.probe_inputs(name, cuda)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got.cpu(), plain(*(a.cpu() if torch.is_tensor(a) else a for a in args)))
+    assert probes.PROBES[name](cuda)

@@ -1,12 +1,16 @@
-"""Decode without a sidecar in qb3_tpu_torch against qb3_tpu, on the CPU:
-the serial walk (offsets.py and the C++ walk of native.py), K7's plain twin
-(ops/gather_cuda) against the TPU kernel gather_slabs run in interpret mode,
-decode_groups against qb3_tpu's decode_groups_fused / decode_groups, and the
-public decode of valid, fixture and damaged streams.  Inputs are made with
-numpy from a seed; the tolerance is zero.
+"""Decode without a sidecar, and of best-mode streams with the "ib"
+sidecar, in qb3_tpu_torch against qb3_tpu, on the CPU: the serial walk
+(offsets.py and the C++ walk of native.py), K7's plain twin (ops/gather_cuda)
+against the TPU kernel gather_slabs run in interpret mode, decode_groups
+against qb3_tpu's decode_groups_fused / decode_groups on fast and best-mode
+groups (CF, CF0, IDX), and the public decode of valid FTL, BASE and best
+streams, the web fixtures, the Landsat sample and damaged streams.  Inputs
+are made with numpy from a seed; the tolerance is zero.
 """
 
 import base64
+import functools
+import hashlib
 import importlib.util
 import json
 import os
@@ -27,12 +31,12 @@ from qb3_tpu.constants import TYPESIZES, Mode, is_best_mode
 from qb3_tpu.ops import decode as jdecode
 from qb3_tpu.ops.pack_pallas import gather_slabs as j_gather_slabs
 from qb3_tpu_torch import api, native, offsets
-from qb3_tpu_torch.benchutil import headline_image
+from qb3_tpu_torch.benchutil import LANDSAT_SAMPLE, LANDSAT_SHA256, headline_image
 from qb3_tpu_torch.ops import decode as tdecode
 from qb3_tpu_torch.ops.gather_cuda import gather_slabs, gather_slabs_plain, gather_span
 
 from . import corpus
-from .test_torch_wavefront import _spiky
+from .test_torch_wavefront import _spiky, best_scene, xla_groups
 
 CPU = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,7 +84,7 @@ def _payload(stream):
     """(payload after the RLE0 pass is undone, info, nblocks) of a stream."""
     info = container.parse_headers(stream)
     data = stream[info.data_offset:]
-    if info.mode in (Mode.RLE, Mode.RLE_H):
+    if info.mode in (Mode.RLE, Mode.RLE_H, Mode.CF_RLE, Mode.CF_RLE_H):
         data = j_rle.rle0_decode(data, j_rle.rle0_decoded_size(data))
     h, w = info.ysize, info.xsize
     if h < 4 or w < 4:
@@ -202,12 +206,108 @@ def test_k7_twin_reads_zero_outside_the_stream():
     assert gather_span(np.array([5, 9, 300]), 8, G=3, cap=64) == 64
 
 
+def _rle_best_scene():
+    """best_scene with a no-data band of zero rows: zero runs the RLE0 pass
+    takes."""
+    img = best_scene(24, 20, 2, np.uint8, seed=70)
+    img[8:20] = 0
+    return img
+
+
+# name -> (image, encode keyword arguments, whether the walk meets CF, CF0
+# and IDX groups); every stream is best mode, with no sidecar or with "ib"
+BEST_CASES = {
+    "u8-cf-h": (lambda: best_scene(24, 20, 1, np.uint8, seed=71), {"mode": Mode.CF_H}, True),
+    "u8-cf-h-rgb": (lambda: best_scene(24, 20, 3, np.uint8, seed=72), {"mode": Mode.CF_H},
+                    False),
+    "u8-cf-rle-z": (_rle_best_scene, {"mode": Mode.CF_RLE}, False),
+    "u8-cf-h-3x160": (lambda: (np.arange(480) % 7 * 12 + 40).reshape(3, 160, 1).astype(np.uint8),
+                      {"mode": Mode.CF_H}, False),
+    "u16-cf-h-2-bands": (lambda: best_scene(24, 20, 2, np.uint16, seed=74),
+                         {"mode": Mode.CF_H}, True),
+    "u16-cf-h-quanta": (lambda: headline_image(20, 24, 1, seed=75, dtype=np.uint16),
+                        {"mode": Mode.CF_H, "quanta": 3}, False),
+    "u32-cf-rle-h": (lambda: best_scene(24, 20, 1, np.uint32, seed=76, step=1000),
+                     {"mode": Mode.CF_RLE_H}, True),
+    "u64-cf-z": (lambda: best_scene(24, 20, 1, np.uint64, seed=77, step=1000),
+                 {"mode": Mode.CF}, False),
+}
+
+
+@functools.cache
+def _best_stream(name, ib):
+    make, kw, _ = BEST_CASES[name]
+    return make(), qb3_tpu.encode(make(), index=ib, **kw)
+
+
+@functools.cache
+def _best_reference(name, ib):
+    """qb3_tpu's decode of _best_stream, shared by both walks' cases."""
+    return qb3_tpu.Decoder(_best_stream(name, ib)[1]).read_data()
+
+
+@pytest.mark.parametrize("path", ["native-walk", "python-walk", "ib"])
+@pytest.mark.parametrize("name", list(BEST_CASES))
+def test_best_decode_equals_qb3_tpu(name, path, monkeypatch):
+    """Best-mode streams (CF, CF_H, CF_RLE, CF_RLE_H; u8 to u64; 1-3 bands;
+    quanta; a small image) decode to qb3_tpu's arrays: without a sidecar by
+    each of the port's walks, pinned, then K7 and K5; with the "ib" sidecar
+    by K7 and K5 on its metadata."""
+    _, kw, all_kinds = BEST_CASES[name]
+    img, stream = _best_stream(name, path == "ib")
+    info = container.parse_headers(stream)
+    assert info.mode == kw["mode"] and info.index is None and info.index_chunked is None
+    assert (info.index_best is not None) == (path == "ib")
+    if path == "python-walk":
+        monkeypatch.setattr(native, "available", lambda: False)
+        data, _, nblocks = _payload(stream)
+        walk = offsets.parse_offsets(data, nblocks, info.nbands, img.itemsize, info.mode)
+        kinds = set(np.unique(walk["kind"]))
+        assert {offsets.KIND_CF, offsets.KIND_CF0, offsets.KIND_IDX} <= kinds or not all_kinds
+    elif path == "native-walk" and not native.available():
+        pytest.skip("no C++ compiler: the native walk does not build")
+    ours = qt.Decoder(stream, device=CPU)
+    out = ours.read_data()
+    np.testing.assert_array_equal(out, _best_reference(name, path == "ib"))
+    assert out.dtype == img.dtype and not ours.failed and ours.decode_path == path
+    if "quanta" not in kw:
+        np.testing.assert_array_equal(out, img.reshape(out.shape))
+
+
+def test_landsat_sample_decodes_to_its_pin():
+    """LANDSAT_SHA256, the pin chip_smoke.py checks on the card, re-derived
+    from qb3_tpu.decode (a few seconds here with either of its walks), and
+    the port's CPU decode (its walk, then K7's and K5's twins) held to it."""
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        stream = f.read()
+    info = container.parse_headers(stream)
+    assert info.mode == Mode.CF_H and info.index_best is None and info.index is None
+    want, _ = qb3_tpu.decode(stream)
+    assert hashlib.sha256(want.tobytes()).hexdigest() == LANDSAT_SHA256
+    dec = qt.Decoder(stream, device=CPU)
+    out = dec.read_data()
+    assert out.shape == (512, 512, 8) and out.dtype == np.uint16
+    assert hashlib.sha256(out.tobytes()).hexdigest() == LANDSAT_SHA256
+    assert dec.decode_path in ("native-walk", "python-walk") and not dec.failed
+
+
 @pytest.mark.parametrize("name", ["u8-ftl-rgb", "u8-base-z-8-bands", "u16-base-h-3-bands",
-                                  "u32-base-z", "u64-rung63", "i64-base-h"])
+                                  "u32-base-z", "u64-rung63", "i64-base-h", "u8-cf-h",
+                                  "u16-cf-h-2-bands", "u32-cf-rle-h", "u64-cf-z"])
 def test_decode_groups_matches_jax(name):
     """decode_groups (K7's and K5's twins) against qb3_tpu's decode_groups_fused
     (u8/u16, the gather without the MXU) and decode_groups (u32/u64) on the
-    same walk."""
+    same walk, of FTL and BASE streams and of best-mode ones."""
+    if name in BEST_CASES:
+        img, stream = _best_stream(name, False)
+        data, info, nblocks = _payload(stream)
+        tbits = 8 * img.itemsize
+        meta = offsets.parse_offsets(data, nblocks, info.nbands, tbits // 8, info.mode)
+        got = tdecode.decode_groups(**api.walk_inputs(meta, api.padded_words(data), tbits, CPU),
+                                    tbits=tbits, apply_step=True)
+        np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                      xla_groups(api.padded_words(data), meta, tbits, True))
+        return
     make, kw = CASES[name]
     img = make()
     data, info, nblocks = _payload(qb3_tpu.encode(img, **kw))
@@ -261,17 +361,16 @@ FIXTURES = _fixtures()
 
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_web_fixture_decodes_to_raw(name):
-    """Every web fixture that is not best mode decodes to its raw bytes; the
-    best-mode ones raise, naming the ROADMAP item that ports them."""
+    """Every web fixture, the three best-mode ones included, decodes to its
+    raw bytes."""
     c = FIXTURES[name]
     stream = base64.b64decode(c["stream"])
-    if is_best_mode(container.parse_headers(stream).mode):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            qt.decode(stream, device=CPU)
-        return
-    out, _ = qt.decode(stream, device=CPU)
+    dec = qt.Decoder(stream, device=CPU)
+    out = dec.read_data()
     assert list(out.shape) == c["shape"] and str(out.dtype) == c["dtype"]
     assert out.tobytes() == base64.b64decode(c["raw"])
+    if is_best_mode(container.parse_headers(stream).mode):
+        assert dec.decode_path in ("native-walk", "python-walk", "ib")
 
 
 DAMAGED = {  # name -> (image, mode)
@@ -311,9 +410,9 @@ def test_damaged_stream_decodes_like_qb3_tpu(name, damage, walk, monkeypatch):
     or its Python walk and qb3_tpu on whichever walk it took (its C++ walk
     where its make-built helper loaded): both walks locate the same groups,
     and a failed walk raises before its end_pos, the one value in which the
-    two walks differ, is read.  A flipped BASE stream whose walk meets
-    best-mode group codes (CF, CF0, IDX) raises NotImplementedError in the
-    port (ROADMAP.md item 12), where qb3_tpu decodes those groups."""
+    two walks differ, is read.  A flipped BASE stream can walk into
+    best-mode group codes (u8-base-h flip-64 meets CF, CF0 or IDX groups):
+    the port decodes them as qb3_tpu does."""
     if walk == "python":
         monkeypatch.setattr(native, "available", lambda: False)
     elif not native.available():
@@ -323,13 +422,11 @@ def test_damaged_stream_decodes_like_qb3_tpu(name, damage, walk, monkeypatch):
     ours, theirs = _read(qt.Decoder, stream), _read(qb3_tpu.Decoder, stream)
     if not isinstance(ours[0], str):
         assert ours[2] == f"{walk}-walk"
-    if isinstance(ours[0], str) and ours[0] == "NotImplementedError":
-        assert (name, damage) == ("u8-base-h", "flip-64") and "item 12" in ours[1]
+    if (name, damage) == ("u8-base-h", "flip-64"):
         data, info, nblocks = _payload(stream)
-        walk = j_offsets.parse_offsets(data, nblocks, info.nbands, TYPESIZES[info.dtype],
-                                       info.mode)
-        assert (walk["kind"] > j_offsets.KIND_BITS).any()
-        return
+        kinds = offsets.parse_offsets(data, nblocks, info.nbands, TYPESIZES[info.dtype],
+                                      info.mode)["kind"]
+        assert (kinds > offsets.KIND_BITS).any()
     if isinstance(theirs[0], str):
         assert ours[0] == theirs[0]
         return
