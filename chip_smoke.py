@@ -32,7 +32,9 @@ printed on earlier lines:
      K6 (slab placement) at the slabs of the u8 4096x4096x3 strip encode's
      stitch, then (3f) P1-P7 at their probes' shapes, each against its
      plain PyTorch twin (exact equality) and, for the probes, the probe's
-     own check; median times, twin times, bounds and a one-call yardstick;
+     own check; median times, twin times, bounds and a one-call yardstick
+     (K3 and K7 at every shape also with their device ms and host enqueue
+     us beside torch.take's);
   4. golden bytes: the committed web fixtures (streams pinned to the C
      reference) all decoded to their raw bytes, the best-mode ones
      included, and re-encoded by the port where not best mode, the headline
@@ -66,7 +68,8 @@ Launch counts are set to 0 just before each main path and read just after;
 each kernel's count in the result is from the path that runs it.  Any
 failure exits non-zero and prints no result.  The line before the last is
 {"kernels": [...]} (each kernel's error, median ms, twin ms, bound ms, and
-a one-call PyTorch yardstick where one exists), the last {"ok": true,
+a one-call PyTorch yardstick where one exists; device ms where a profile
+took it, and the yardstick's for K3 and K7), the last {"ok": true,
 "device": {...}}.  A bound is the larger of the bytes the function needs
 (each input read once and each output written once, at the width of its
 values, not of the port's int64 carriers) at the memory rate and the
@@ -225,7 +228,72 @@ def compare(name, got, want):
     return err
 
 
-def kernel_phase(dev, img, tiles, u16):
+def launch_times(fn, op=None) -> dict:
+    """One call's times three ways: ms, the median between CUDA events of 50
+    calls (the larger of host enqueue and device time); device_ms, from a
+    profile of 20 calls, the device operations whose name holds op (all of
+    them without op); enqueue_us, the host clock over many calls without a
+    synchronize after a warm-up (as many as queue ~5 ms of device work, at
+    most 1000, so the launch queue never fills)."""
+    import torch
+
+    from qb3_tpu_torch.benchutil import device_profile, median_ms
+
+    ms = median_ms(fn, 50)
+    p = device_profile(fn, 20)
+    if p["attempts"] > 1:
+        log(f"the profile took {p['attempts']} attempts (the earlier ones recorded no device activity)")
+    dev = p["busy_ms"] if op is None else sum(v for k, v in p["per_op"].items() if op in k)
+    iters = min(1000, max(100, int(5 / max(dev, 1e-6))))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dict(ms=ms, device_ms=dev, enqueue_us=t / iters * 1e6)
+
+
+def times_text(t: dict) -> str:
+    return (f"median {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms, enqueue "
+            f"{t['enqueue_us']:.2f} us")
+
+
+def take_windows(words32, first, width: int):
+    """The one-call yardstick of K3 and K7: torch.take on the zero-padded
+    stream with the int64 index of every window word, built here, untimed
+    -> a call computing out[t, j] = words32[first[t] + j], zero past the
+    stream's end (first >= 0)."""
+    import torch
+
+    padded = torch.cat([words32, words32.new_zeros(width)])
+    idx = (first.to(torch.int64)[:, None] + torch.arange(width, device=words32.device)).clamp(
+        0, padded.numel() - 1)
+    return lambda: torch.take(padded, idx)
+
+
+def k3_cases(img, tiles, u16, dev) -> list:
+    """K3's shapes on the "ic" decode: (label, streams, ubits) for one u8
+    512x512x3 tile, BATCH of them and a u16 1024x1024x1 raster."""
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.batch import encode_tiles
+
+    return [("single u8", [api.encode(img, index="ic", device=dev)], 3),
+            (f"batch{BATCH} u8", encode_tiles(tiles, index="ic", device=dev), 3),
+            ("1024x1024 u16", [api.encode(u16, index="ic", device=dev)], 4)]
+
+
+def k7_inputs(x, dev) -> dict:
+    """K7's inputs on the walk decode of x's default (FTL, no sidecar)
+    stream: words32, base, nreg, R."""
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.constants import Mode
+
+    return stream_walk(api.encode(x, mode=Mode.FTL, device=dev), dev)["inp"]
+
+
+def kernel_phase(dev, card, img, tiles, u16):
     """Phase 3: each kernel against its twin at the main path's shapes."""
     import torch
 
@@ -259,27 +327,21 @@ def kernel_phase(dev, img, tiles, u16):
         results.setdefault("pack_groups_chunked", (err, ms, plain, need, None))
         del codes, lens
 
-    cases = (("single u8", [api.encode(img, index="ic", device=dev)], 3),
-             (f"batch{BATCH} u8", None, 3),
-             ("1024x1024 u16", [api.encode(u16, index="ic", device=dev)], 4))
-    for label, streams, ubits in cases:
-        if streams is None:
-            from qb3_tpu_torch.batch import encode_tiles
-            streams = encode_tiles(tiles, index="ic", device=dev)
+    for label, streams, ubits in k3_cases(img, tiles, u16, dev):
         a = walk_inputs(streams, dev)
         wargs = (a["words32"], a["wrow"], a["R"])
         win = pack_cuda.extract_windows(*wargs)
         err3 = compare("extract_windows", win, pack_cuda.extract_windows_plain(*wargs))
-        ms3 = median_ms(lambda: pack_cuda.extract_windows(*wargs))
+        take = take_windows(a["words32"], a["wrow"].to(torch.int64) * 128, a["R"])
+        compare("extract_windows", take(), win)
+        t3 = launch_times(lambda: pack_cuda.extract_windows(*wargs), "extract_windows_kernel")
+        tt = launch_times(take)
         plain3 = median_ms(lambda: pack_cuda.extract_windows_plain(*wargs), 5)
-        # yardstick: torch.take on the zero-padded stream, index built untimed
-        padded = torch.cat([a["words32"], a["words32"].new_zeros(a["R"])])
-        idx = (a["wrow"].to(torch.int64)[:, None] * 128
-               + torch.arange(a["R"], device=dev)).clamp(max=padded.numel() - 1)
-        compare("extract_windows", torch.take(padded, idx), win)
-        lib3 = median_ms(lambda: torch.take(padded, idx))
-        log(f"K3 extract_windows {label} windows {tuple(win.shape)}: equal, "
-            f"kernel {ms3:.4f} ms, twin {plain3:.4f} ms, torch.take {lib3:.4f} ms")
+        need3 = (2 * nbytes(win), 0)
+        bms, by = bound(need3)
+        log(f"K3 extract_windows {label} windows {tuple(win.shape)}: equal; kernel "
+            f"{times_text(t3)}; torch.take {times_text(tt)}; twin {plain3:.4f} ms; bound "
+            f"{bms:.5f} ms by {by} ({card})")
         cargs = (a["words32"], win, a["wrow"], a["starts"], a["entry"], a["k"],
                  a["nb"], False, ubits)
         walked = chunkwalk8(*cargs)
@@ -289,11 +351,12 @@ def kernel_phase(dev, img, tiles, u16):
         log(f"K2 chunkwalk8 {label} ubits {ubits} chunks {a['starts'].shape[0]}: "
             f"equal, kernel {ms2:.4f} ms, twin {plain2:.4f} ms")
         tbits = 8 if ubits == 3 else 16
-        results.setdefault("extract_windows", (err3, ms3, plain3, (2 * nbytes(win), 0), lib3))
+        results.setdefault("extract_windows", (err3, t3["ms"], plain3, need3, tt["ms"],
+                                               t3["device_ms"], tt["device_ms"]))
         results.setdefault("chunkwalk8", (err2, ms2, plain2, (
             payload_bytes(streams) + 4 * a["starts"].numel() + a["entry"].numel()
             + walked.numel() * tbits // 8, walk_ops(walked, tbits)), None))
-        del walked, padded, idx
+        del walked, take, win
     return results
 
 
@@ -495,39 +558,33 @@ def k5_need(walked, a, tbits):
     return (4 * ng * a["nreg"] + ng * (2 + 1 + 1 + 8) + ng * 16 * tb // 8, ops)
 
 
-def k7_phase(dev, img, u64):
+def k7_phase(dev, card, img, u64):
     """Phase 3d: K7 against its twin at the windows the walk decode gathers:
     the headline u8 tile and u64 1024x1024x1."""
-    import torch
-
-    from qb3_tpu_torch import api
     from qb3_tpu_torch.benchutil import median_ms
-    from qb3_tpu_torch.constants import Mode
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs, gather_slabs_plain
 
     res = None
     for label, x in (("u8 512x512x3", img), ("u64 1024x1024x1", u64)):
-        a = stream_walk(api.encode(x, mode=Mode.FTL, device=dev), dev)["inp"]
+        a = k7_inputs(x, dev)
         words32, base, W, R = a["words32"], a["base"], a["nreg"], a["R"]
         got = gather_slabs(words32, base, W, R)
         err = compare("gather_slabs", got, gather_slabs_plain(words32, base, W))
-        ms = median_ms(lambda: gather_slabs(words32, base, W, R))
+        take = take_windows(words32, base, W)
+        compare("gather_slabs", take(), got)
+        t7 = launch_times(lambda: gather_slabs(words32, base, W, R), "gather_slabs_kernel")
+        tt = launch_times(take)
         plain = median_ms(lambda: gather_slabs_plain(words32, base, W), 5)
-        # yardstick: torch.take on the zero-padded stream, index built untimed
-        padded = torch.cat([words32, words32.new_zeros(W)])
-        idx = (base.to(torch.int64)[:, None] + torch.arange(W, device=dev)).clamp(
-            0, padded.numel() - 1)
-        compare("gather_slabs", torch.take(padded, idx), got)
-        lib = median_ms(lambda: torch.take(padded, idx))
         ng, n32 = base.numel(), words32.numel()
         lo, hi = int(base.min()), min(int(base.max()) + W, n32)
         need = (4 * ng + 4 * max(hi - lo, 0) + nbytes(got), 2 * got.numel())
         bms, by = bound(need)
-        log(f"K7 gather_slabs {label} groups {ng} x {W} words, span R {R}: equal, kernel "
-            f"{ms:.4f} ms, twin {plain:.4f} ms, torch.take {lib:.4f} ms, bound {bms:.5f} ms "
-            f"by {by} ({need[0]} bytes)")
-        res = (max(err, res[0]),) + res[1:] if res else (err, ms, plain, need, lib)
-        del got, padded, idx
+        log(f"K7 gather_slabs {label} groups {ng} x {W} words, span R {R}: equal; "
+            f"kernel {times_text(t7)}; torch.take {times_text(tt)}; twin {plain:.4f} ms; bound "
+            f"{bms:.5f} ms by {by} ({need[0]} bytes) ({card})")
+        res = (max(err, res[0]),) + res[1:] if res else (
+            err, t7["ms"], plain, need, tt["ms"], t7["device_ms"], tt["device_ms"])
+        del got, take
     return {"gather_slabs": res}
 
 
@@ -659,7 +716,7 @@ def probe_phase(dev, card):
         log(f"P {name} {kern.__name__} {tuple(got.shape)}: equal to its twin, probe check OK, "
             f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.4f} ms, library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.6f} ms by {by} ({card})")
-        results[f"probe_{name}"] = (err, ms, plain_ms, need, lib)
+        results[f"probe_{name}"] = (err, ms, plain_ms, need, lib, dev_ms, None)
     return results
 
 
@@ -875,7 +932,7 @@ def k6_phase(dev, card, x):
         f"{p['busy_ms']:.4f} ms busy), twin {plain:.4f} ms, index_add_ {lib:.4f} ms, bound "
         f"{bms:.5f} ms by {by} ({need[0]} bytes, {need[1]} adds) ({card})")
     del keep, slab, base, got, idx, vals, live
-    return {"place_slabs": (err, ms, plain, need, lib)}
+    return {"place_slabs": (err, ms, plain, need, lib, kernel_ms, None)}
 
 
 def strip_phase(dev, card, kernels, cases):
@@ -1167,12 +1224,12 @@ def main() -> int:
     u64 = headline_image(256, 256, 1, seed=8, dtype=np.uint64)
 
     log("# phase 3: kernels against their twins")
-    kres = kernel_phase(dev, img, tiles, u16)
+    kres = kernel_phase(dev, card, img, tiles, u16)
     cases = ix_cases()
     ix_res, ix_streams = ix_kernel_phase(dev, cases)
     kres.update(ix_res)
     kres.update(k8_phase(dev))
-    kres.update(k7_phase(dev, img, wide_image("u64 1024x1024x1")))
+    kres.update(k7_phase(dev, card, img, wide_image("u64 1024x1024x1")))
     for name, err in k5_best_phase(dev, card).items():
         kres[name] = (max(err, kres[name][0]),) + kres[name][1:]
     scases = strip_cases()
@@ -1394,12 +1451,14 @@ def main() -> int:
 
     line = []
     for name in KERNELS:
-        err, ms, plain, need, lib = kres[name]
+        # device ms (profiled: K3, K6, K7, P1-P7) and the library call's, else None
+        err, ms, plain, need, lib, dev_ms, lib_dev = (*kres[name], None, None)[:7]
         bms, by = bound(need)
         line.append({"name": name, "route": "cuda", "source": KERNELS[name][0],
                      "replaces": KERNELS[name][1], "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                     "bound_by": by, "library_ms": lib})
+                     "bound_by": by, "library_ms": lib, "device_ms": dev_ms,
+                     "library_device_ms": lib_dev})
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

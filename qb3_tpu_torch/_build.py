@@ -110,9 +110,12 @@ def build() -> str:
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first call."""
-    lib = ctypes.CDLL(build())
+def load() -> ctypes.PyDLL:
+    """The kernel library, built on first call, with every entry point's
+    argument types set.  Loaded as a PyDLL, whose calls keep the GIL: an
+    entry point only enqueues a launch, and releasing and taking back the
+    GIL would add to every launch's host time."""
+    lib = ctypes.PyDLL(build())
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -120,7 +123,20 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}")
+class Kernel:
+    """One C entry point of the library, bound at its first call (which
+    builds the library) and kept, so a launch costs one ctypes call: it
+    passes the arguments on and raises if the entry point reports a CUDA
+    error."""
+
+    __slots__ = ("name", "fn")
+
+    def __init__(self, name: str):
+        self.name, self.fn = name, None
+
+    def __call__(self, *args) -> None:
+        if self.fn is None:
+            self.fn = getattr(load(), self.name)
+        err = self.fn(*args)
+        if err:
+            raise RuntimeError(f"{self.name}: CUDA error {err}")

@@ -14,9 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _build
 from .bitutils import M32, words_u32
 from .decode_chunked import WINDOW_TILE, walk_chunks
 from .pack_cuda import on_cpu, require, stream_ptr
+
+_K2 = _build.Kernel("qb3_chunkwalk")
 
 
 def ic_maxw(spans: np.ndarray) -> int:
@@ -83,8 +86,6 @@ def chunkwalk8(words32, win, wrow, starts, entry_rungs, K: int, NB: int,
     if on_cpu(words32):
         return chunkwalk8_plain(words32, win, wrow, starts, entry_rungs, K, NB,
                                 apply_step, ubits)
-    from .. import _build
-
     dev = words32.device
     require(words32, torch.int32, "words32", 1)
     require(win, torch.int32, "win", 2, dev)
@@ -95,11 +96,9 @@ def chunkwalk8(words32, win, wrow, starts, entry_rungs, K: int, NB: int,
     if entry_rungs.shape != (nchunks, NB) or wrow.shape[0] * WINDOW_TILE < nchunks:
         raise ValueError("chunk walk arguments disagree in shape")
     out = torch.empty(nchunks, K, NB, 16, dtype=torch.int32, device=dev)
-    err = _build.load().qb3_chunkwalk(
-        words32.data_ptr(), words32.shape[0], win.data_ptr(), wrow.data_ptr(),
-        win.shape[1], starts.data_ptr(), entry_rungs.data_ptr(), nchunks, K, NB,
-        int(apply_step), ubits, out.data_ptr(), stream_ptr(dev))
-    _build.check(err, "qb3_chunkwalk")
+    _K2(words32.data_ptr(), words32.shape[0], win.data_ptr(), wrow.data_ptr(), win.shape[1],
+        starts.data_ptr(), entry_rungs.data_ptr(), nchunks, K, NB, int(apply_step), ubits,
+        out.data_ptr(), stream_ptr(dev))
     chunkwalk8.launches += 1
     return out
 

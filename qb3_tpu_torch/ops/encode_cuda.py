@@ -11,10 +11,13 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..constants import B, B2, curve_offsets
 from .bitpack import group_bits_bound, pack_groups
 from .encode import value_codes_arith
 from .pack_cuda import on_cpu, require, stream_ptr
+
+_K8 = _build.Kernel("qb3_encode_pack_image")
 
 
 def _check_shapes(m, groups):
@@ -72,8 +75,6 @@ def encode_pack_image(m, rung, gkind, pcode, plen, glen, tbits: int, n_words: in
     if on_cpu(m):
         return encode_pack_image_plain(m, rung, gkind, pcode, plen, glen, tbits, n_words,
                                        order)
-    from .. import _build
-
     require(m, torch.int64, "m", 3)
     groups = {"rung": rung, "gkind": gkind, "pcode": pcode, "plen": plen, "glen": glen}
     for name, x in groups.items():
@@ -82,11 +83,9 @@ def encode_pack_image(m, rung, gkind, pcode, plen, glen, tbits: int, n_words: in
     gend = torch.cumsum(glen, 0)
     goff = gend - glen
     out = torch.zeros(n_words, dtype=torch.int32, device=m.device)
-    err = _build.load().qb3_encode_pack_image(
-        m.data_ptr(), rung.data_ptr(), gkind.data_ptr(), pcode.data_ptr(), plen.data_ptr(),
+    _K8(m.data_ptr(), rung.data_ptr(), gkind.data_ptr(), pcode.data_ptr(), plen.data_ptr(),
         goff.data_ptr(), rung.shape[0], m.shape[1] // B, m.shape[2], order, n_words,
         out.data_ptr(), stream_ptr(m.device))
-    _build.check(err, "qb3_encode_pack_image")
     encode_pack_image.launches += 1
     return out, gend[-1], glen.to(torch.int32)
 

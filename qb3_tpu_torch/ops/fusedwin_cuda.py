@@ -15,10 +15,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _build
 from ..constants import B2
 from .decode import ix_parse, ix_regs, ix_walk, step_restore
 from .gather_cuda import gather_span
 from .pack_cuda import on_cpu, require, stream_ptr
+
+_K4 = _build.Kernel("qb3_wavefront_fused")
 
 FUSED_G = 128  # groups per K4 block (csrc/fusedwin.cu kThreads)
 FUSED_MAX_R = 8192  # staged words per block (32 KB of shared memory)
@@ -65,8 +68,6 @@ def wavefront_fused(words32, goff, nreg: int, R: int, tbits: int,
     if on_cpu(words32):
         return wavefront_fused_plain(words32, goff, nreg, tbits, nbands, off, rung,
                                      kind, per_tile, apply_step)
-    from .. import _build
-
     dev = words32.device
     require(words32, torch.int32, "words32", 1)
     require(goff, torch.int32, "goff", 1, dev)
@@ -92,10 +93,8 @@ def wavefront_fused(words32, goff, nreg: int, R: int, tbits: int,
             if x.shape[0] != ngroups:
                 raise ValueError(f"{n}: {x.shape[0]} groups, goff has {ngroups}")
         ptrs = (off.data_ptr(), rung.data_ptr(), kind.data_ptr(), out.data_ptr(), null, null)
-    err = _build.load().qb3_wavefront_fused(
-        words32.data_ptr(), words32.shape[0], goff.data_ptr(), ngroups, nreg, R, tbits,
+    _K4(words32.data_ptr(), words32.shape[0], goff.data_ptr(), ngroups, nreg, R, tbits,
         nbands or 0, per_tile, int(apply_step), *ptrs, stream_ptr(dev))
-    _build.check(err, "qb3_wavefront_fused")
     wavefront_fused.launches += 1
     return (out, rung_out) if nbands is not None else out
 

@@ -15,10 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _build
 from .pack_cuda import on_cpu, require, stream_ptr
 
 GATHER_G = 128  # groups per K7 block (csrc/gather.cu kGroups)
 GATHER_MAX_R = 8192  # staged words per block (32 KB of shared memory)
+_K7 = _build.Kernel("qb3_gather_slabs")
 
 
 def gather_span(base: np.ndarray, W: int, G: int = GATHER_G, cap: int = GATHER_MAX_R) -> int:
@@ -45,23 +47,23 @@ def gather_slabs_plain(words32, base, W: int):
 def gather_slabs(words32, base, W: int, R: int):
     """K7: words32 (n32,) int32 u32 stream words, 16-byte aligned; base
     (ngroups,) int32 word offsets (sorted on the decode path); R the words
-    each block stages (gather_span) -> (ngroups, W) int32."""
+    each block stages (gather_span) -> (ngroups, W) int32.  No group, no
+    launch."""
     if on_cpu(words32):
         return gather_slabs_plain(words32, base, W)
-    from .. import _build
-
     dev = words32.device
     require(words32, torch.int32, "words32", 1)
     require(base, torch.int32, "base", 1, dev)
-    if words32.data_ptr() % 16:
+    ptr = words32.data_ptr()
+    if ptr % 16:
         raise ValueError("words32 must be 16-byte aligned")
     if not (4 <= R <= GATHER_MAX_R and R % 4 == 0):
         raise ValueError(f"staged span R={R}: want a multiple of 4 in [4, {GATHER_MAX_R}]")
-    out = torch.empty(base.shape[0], W, dtype=torch.int32, device=dev)
-    err = _build.load().qb3_gather_slabs(words32.data_ptr(), words32.shape[0], base.data_ptr(),
-                                         base.shape[0], W, R, out.data_ptr(), stream_ptr(dev))
-    _build.check(err, "qb3_gather_slabs")
-    gather_slabs.launches += 1
+    ngroups = base.shape[0]
+    out = torch.empty(ngroups, W, dtype=torch.int32, device=dev)
+    if ngroups:
+        _K7(ptr, words32.shape[0], base.data_ptr(), ngroups, W, R, out.data_ptr(), stream_ptr(dev))
+        gather_slabs.launches += 1
     return out
 
 

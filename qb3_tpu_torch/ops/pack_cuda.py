@@ -12,15 +12,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _build
 from .bitpack import group_offsets, pack_groups
+
+_K1 = _build.Kernel("qb3_pack_groups")
+_K3 = _build.Kernel("qb3_extract_windows")
 
 
 def on_cpu(x) -> bool:
     """True for a CPU tensor (take the twin), False for a CUDA tensor
-    (launch the kernel); raises for any other device."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type == "cpu"
+    (launch the kernel); raises for any other device.  (is_cuda and is_cpu
+    cost a fraction of device.type, which builds a string.)"""
+    if x.is_cuda:
+        return False
+    if x.is_cpu:
+        return True
+    raise ValueError(f"unsupported device {x.device}")
 
 
 def require(x, dtype, name: str, ndim: int | None = None, device=None):
@@ -36,7 +43,10 @@ def require(x, dtype, name: str, ndim: int | None = None, device=None):
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream of a tensor's device, without
+    building a Python Stream object: PyTorch's private call, the one
+    Triton's launcher takes."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def pack_groups_chunked(codes, lens, n_words: int, max_group_bits: int):
@@ -47,8 +57,6 @@ def pack_groups_chunked(codes, lens, n_words: int, max_group_bits: int):
     needs no bound."""
     if on_cpu(codes):
         return pack_groups(codes, lens, n_words, max_group_bits)
-    from .. import _build
-
     require(codes, torch.int64, "codes")
     require(lens, torch.int32, "lens", codes.dim(), codes.device)
     if lens.shape != codes.shape:
@@ -58,10 +66,8 @@ def pack_groups_chunked(codes, lens, n_words: int, max_group_bits: int):
     glen, goff, total = group_offsets(lens)
     goff = goff.contiguous()
     out = torch.zeros(*lead, n_words, dtype=torch.int32, device=codes.device)
-    err = _build.load().qb3_pack_groups(
-        codes.data_ptr(), lens.data_ptr(), goff.data_ptr(), ntiles * ngroups, S,
-        ngroups, n_words, out.data_ptr(), stream_ptr(codes.device))
-    _build.check(err, "qb3_pack_groups")
+    _K1(codes.data_ptr(), lens.data_ptr(), goff.data_ptr(), ntiles * ngroups, S, ngroups,
+        n_words, out.data_ptr(), stream_ptr(codes.device))
     pack_groups_chunked.launches += 1
     return out, total, glen.to(torch.int32)
 
@@ -80,23 +86,22 @@ def extract_windows_plain(words32, wrow, R: int):
 def extract_windows(words32, wrow, R: int):
     """K3: per-tile stream windows.  words32 (n,) int32 u32 patterns, wrow
     (n_tiles,) int32 row indices (rows of 128 words), R a multiple of 128
-    -> (n_tiles, R) int32."""
+    -> (n_tiles, R) int32.  No window, no launch."""
     if R % 128:
         raise ValueError(f"R={R} is not a multiple of 128")
     if on_cpu(words32):
         return extract_windows_plain(words32, wrow, R)
-    from .. import _build
-
+    dev = words32.device
     require(words32, torch.int32, "words32", 1)
-    require(wrow, torch.int32, "wrow", 1, words32.device)
-    if words32.data_ptr() % 16:
+    require(wrow, torch.int32, "wrow", 1, dev)
+    ptr = words32.data_ptr()
+    if ptr % 16:
         raise ValueError("words32 must be 16-byte aligned")
-    out = torch.empty(wrow.shape[0], R, dtype=torch.int32, device=words32.device)
-    err = _build.load().qb3_extract_windows(
-        words32.data_ptr(), words32.shape[0], wrow.data_ptr(), wrow.shape[0], R,
-        out.data_ptr(), stream_ptr(words32.device))
-    _build.check(err, "qb3_extract_windows")
-    extract_windows.launches += 1
+    n_tiles = wrow.shape[0]
+    out = torch.empty(n_tiles, R, dtype=torch.int32, device=dev)
+    if n_tiles and R:
+        _K3(ptr, words32.shape[0], wrow.data_ptr(), n_tiles, R, out.data_ptr(), stream_ptr(dev))
+        extract_windows.launches += 1
     return out
 
 

@@ -15,7 +15,10 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from .pack_cuda import on_cpu, require, stream_ptr
+
+_K6 = _build.Kernel("qb3_place_slabs")
 
 
 def place_slabs_plain(slab, base, n_words: int):
@@ -35,8 +38,6 @@ def place_slabs(slab, base, n_words: int):
     (n_words,) int32, zero where no slab lands."""
     if on_cpu(slab):
         return place_slabs_plain(slab, base, n_words)
-    from .. import _build
-
     dev = slab.device
     require(slab, torch.int32, "slab", 2)
     require(base, torch.int32, "base", 1, dev)
@@ -45,10 +46,8 @@ def place_slabs(slab, base, n_words: int):
     out = torch.zeros(n_words, dtype=torch.int32, device=dev)
     if slab.numel() == 0:
         return out
-    err = _build.load().qb3_place_slabs(slab.data_ptr(), base.data_ptr(), slab.shape[0],
-                                        slab.shape[1], out.data_ptr(), n_words,
-                                        stream_ptr(dev))
-    _build.check(err, "qb3_place_slabs")
+    _K6(slab.data_ptr(), base.data_ptr(), slab.shape[0], slab.shape[1], out.data_ptr(), n_words,
+        stream_ptr(dev))
     place_slabs.launches += 1
     return out
 

@@ -16,13 +16,15 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from .pack_cuda import on_cpu, require, stream_ptr
 
-
-def _run(name, *args):
-    from .. import _build
-
-    _build.check(getattr(_build.load(), name)(*args), name)
+_P1 = _build.Kernel("qb3_probe_dim0_dot")
+_P2 = _build.Kernel("qb3_probe_dma_1d")
+_P3 = _build.Kernel("qb3_probe_flatten")  # P3 and P7
+_P4 = _build.Kernel("qb3_probe_dma_3d")
+_P5 = _build.Kernel("qb3_probe_lane_write")
+_P6 = _build.Kernel("qb3_probe_lane_concat")
 
 
 def dim0_dot_plain(a, b):
@@ -42,8 +44,7 @@ def dim0_dot(a, b):
         raise ValueError(f"contraction {a.shape[0]} vs {b.shape[0]}")
     (K, M), N = a.shape, b.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=a.device)
-    _run("qb3_probe_dim0_dot", a.data_ptr(), b.data_ptr(), K, M, N, out.data_ptr(),
-         stream_ptr(a.device))
+    _P1(a.data_ptr(), b.data_ptr(), K, M, N, out.data_ptr(), stream_ptr(a.device))
     dim0_dot.launches += 1
     return out
 
@@ -63,8 +64,8 @@ def dma_1d(src, offs, length: int):
     require(src, torch.int32, "src", 1)
     require(offs, torch.int32, "offs", 1, src.device)
     out = torch.empty(offs.shape[0], length, dtype=torch.int32, device=src.device)
-    _run("qb3_probe_dma_1d", src.data_ptr(), src.shape[0], offs.data_ptr(), offs.shape[0],
-         length, out.data_ptr(), stream_ptr(src.device))
+    _P2(src.data_ptr(), src.shape[0], offs.data_ptr(), offs.shape[0], length, out.data_ptr(),
+        stream_ptr(src.device))
     dma_1d.launches += 1
     return out
 
@@ -81,8 +82,7 @@ def _flatten(x, counter):
         return flatten_plain(x)
     require(x, torch.int32, "x", 2)
     out = torch.empty(1, x.numel(), dtype=torch.int32, device=x.device)
-    _run("qb3_probe_flatten", x.data_ptr(), x.shape[0], x.shape[1], out.data_ptr(),
-         stream_ptr(x.device))
+    _P3(x.data_ptr(), x.shape[0], x.shape[1], out.data_ptr(), stream_ptr(x.device))
     counter.launches += 1
     return out
 
@@ -114,8 +114,8 @@ def dma_3d(src, off, length: int):
     require(src, torch.int32, "src", 3)
     require(off, torch.int32, "off", 1, src.device)
     out = torch.empty(src.shape[0], length, src.shape[2], dtype=torch.int32, device=src.device)
-    _run("qb3_probe_dma_3d", src.data_ptr(), *src.shape, off.data_ptr(), length,
-         out.data_ptr(), stream_ptr(src.device))
+    _P4(src.data_ptr(), *src.shape, off.data_ptr(), length, out.data_ptr(),
+        stream_ptr(src.device))
     dma_3d.launches += 1
     return out
 
@@ -134,8 +134,8 @@ def lane_write(x, width: int, col: int):
         return lane_write_plain(x, width, col)
     require(x, torch.int32, "x", 2)
     out = torch.empty(x.shape[0], width, dtype=torch.int32, device=x.device)
-    _run("qb3_probe_lane_write", x.data_ptr(), x.shape[0], x.shape[1], width, col,
-         out.data_ptr(), stream_ptr(x.device))
+    _P5(x.data_ptr(), x.shape[0], x.shape[1], width, col, out.data_ptr(),
+        stream_ptr(x.device))
     lane_write.launches += 1
     return out
 
@@ -153,8 +153,7 @@ def lane_concat(x, copies: int):
         return lane_concat_plain(x, copies)
     require(x, torch.int32, "x", 2)
     out = torch.empty(x.shape[0], x.shape[1] * copies, dtype=torch.int32, device=x.device)
-    _run("qb3_probe_lane_concat", x.data_ptr(), x.shape[0], x.shape[1], copies,
-         out.data_ptr(), stream_ptr(x.device))
+    _P6(x.data_ptr(), x.shape[0], x.shape[1], copies, out.data_ptr(), stream_ptr(x.device))
     lane_concat.launches += 1
     return out
 

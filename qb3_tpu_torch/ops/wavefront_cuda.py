@@ -19,10 +19,14 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..constants import B2
 from .bitutils import M32, magsabs, srl
 from .decode import _vlc_decode_arith, _vlc_decode_plain, _vlc_decode_single, step_restore
 from .pack_cuda import on_cpu, require, stream_ptr
+
+_K5A = _build.Kernel("qb3_wavefront8")
+_K5B = _build.Kernel("qb3_wavefront_wide")
 
 KIND_GROUP, KIND_BITS, KIND_CF, KIND_CF0, KIND_IDX = 1, 2, 3, 4, 5  # K5's codes
 
@@ -125,9 +129,7 @@ def wavefront_wide_plain(regs_arr, off, rung, kind, nreg: int, tbits: int, cf=No
     return _walk_plain(regs_arr, off, rung, kind, cf, nreg, tbits)
 
 
-def _launch(name, regs_arr, off, rung, kind, cf, nreg, out, *extra):
-    from .. import _build
-
+def _launch(kernel, regs_arr, off, rung, kind, cf, nreg, out, *extra):
     dev = regs_arr.device
     require(regs_arr, torch.int32, "regs_arr", 2)
     for x, n in ((off, "off"), (rung, "rung"), (kind, "kind"), (cf, "cf")):
@@ -138,11 +140,9 @@ def _launch(name, regs_arr, off, rung, kind, cf, nreg, out, *extra):
             raise ValueError(f"{n}: {x.shape[0]} groups, regs_arr has {regs_arr.shape[0]}")
     if regs_arr.shape[1] != nreg:
         raise ValueError(f"regs_arr has {regs_arr.shape[1]} words per group, nreg={nreg}")
-    fn = getattr(_build.load(), name)
-    err = fn(regs_arr.data_ptr(), regs_arr.shape[0], nreg, *extra, off.data_ptr(),
-             rung.data_ptr(), kind.data_ptr(), None if cf is None else cf.data_ptr(),
-             out.data_ptr(), stream_ptr(dev))
-    _build.check(err, name)
+    kernel(regs_arr.data_ptr(), regs_arr.shape[0], nreg, *extra, off.data_ptr(),
+           rung.data_ptr(), kind.data_ptr(), None if cf is None else cf.data_ptr(),
+           out.data_ptr(), stream_ptr(dev))
     return out
 
 
@@ -154,7 +154,7 @@ def wavefront8(regs_arr, off, rung, kind, nreg: int, cf=None):
     if on_cpu(regs_arr):
         return wavefront8_plain(regs_arr, off, rung, kind, nreg, cf)
     out = torch.empty(regs_arr.shape[0], B2, dtype=torch.int32, device=regs_arr.device)
-    _launch("qb3_wavefront8", regs_arr, off, rung, kind, cf, nreg, out)
+    _launch(_K5A, regs_arr, off, rung, kind, cf, nreg, out)
     wavefront8.launches += 1
     return out
 
@@ -167,7 +167,7 @@ def wavefront_wide(regs_arr, off, rung, kind, nreg: int, tbits: int, cf=None):
     if on_cpu(regs_arr):
         return wavefront_wide_plain(regs_arr, off, rung, kind, nreg, tbits, cf)
     out = torch.empty(regs_arr.shape[0], B2, dtype=torch.int64, device=regs_arr.device)
-    _launch("qb3_wavefront_wide", regs_arr, off, rung, kind, cf, nreg, out, tbits)
+    _launch(_K5B, regs_arr, off, rung, kind, cf, nreg, out, tbits)
     wavefront_wide.launches += 1
     return out
 

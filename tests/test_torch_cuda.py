@@ -96,6 +96,28 @@ def test_k3_matches_twin(cuda):
     assert (got[4] == 0).all()  # past the end: zero slack
 
 
+@pytest.mark.parametrize("n,wrow,R", [
+    (3001, [0, 2, 7, 23, 40], 512),    # n not a multiple of 4, ending inside a slice; 40 past it
+    (3001, [20, 21, 22, 23, 24], 1024),  # windows across the end and wholly past it
+    (4096, [0, 5, 31, 3], 128),        # R = 128: one short slice a window
+    (70001, [0, 17, 100, 300, 530, 546], 2176),  # 5 slices a window, the last of 128 words
+    (4096, [], 512),                   # no window: no launch
+])
+def test_k3_edges_match_twin(cuda, n, wrow, R):
+    """K3's bulk copies and its threads' path (the slice across the
+    stream's end, slices past it) against the twin, tolerance zero."""
+    rng = np.random.default_rng(n + R)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+    wrow = torch.tensor(wrow, dtype=torch.int32, device=cuda)
+    before = pack_cuda.extract_windows.launches
+    got = pack_cuda.extract_windows(words, wrow, R)
+    torch.cuda.synchronize()
+    assert pack_cuda.extract_windows.launches == before + (wrow.numel() > 0)
+    assert got.shape == (wrow.numel(), R)
+    assert torch.equal(got, pack_cuda.extract_windows_plain(words, wrow, R))
+
+
 @pytest.mark.parametrize("dtype,mode", [
     (np.uint8, Mode.FTL), (np.uint8, Mode.BASE_H), (np.uint16, Mode.FTL),
     (np.uint16, Mode.BASE_Z)])
@@ -327,6 +349,33 @@ def test_k7_matches_twin(cuda):
         torch.cuda.synchronize()
         assert gather_slabs.launches == before + 1
         assert torch.equal(got, gather_slabs_plain(inp["words32"], base, W))
+
+
+@pytest.mark.parametrize("case", ["sorted", "garbage", "over-the-cap", "none"])
+@pytest.mark.parametrize("W", [5, 8, 12, 20, 36])
+def test_k7_edges_match_twin(cuda, W, case):
+    """K7 at every window width the decode uses and one that is not a
+    multiple of 4, against the twin, tolerance zero: 1000 sorted bases (not
+    a multiple of 128 groups; the last ones past the stream's end), 777
+    unsorted ones, negative and past the end, bases whose blocks span more
+    than GATHER_MAX_R words, and no group (no launch)."""
+    rng = np.random.default_rng(W)
+    n32 = 40003
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, n32, dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+    base = {"sorted": np.sort(rng.integers(n32 - 9000, n32 + 10, 1000)),
+            "garbage": rng.integers(-60, n32 + 60, 777),
+            "over-the-cap": np.arange(300) * 100,
+            "none": np.zeros(0)}[case].astype(np.int32)
+    R = gather_span(base, W)
+    if case == "over-the-cap":
+        assert R == GATHER_MAX_R
+    before = gather_slabs.launches
+    got = gather_slabs(words, torch.from_numpy(base).to(cuda), W, R)
+    torch.cuda.synchronize()
+    assert gather_slabs.launches == before + (base.size > 0)
+    assert got.shape == (base.size, W)
+    assert torch.equal(got, gather_slabs_plain(words, torch.from_numpy(base).to(cuda), W))
 
 
 @pytest.mark.parametrize("dtype,mode", [

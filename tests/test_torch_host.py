@@ -125,6 +125,30 @@ def test_rle_streams_equal_with_and_without_native(mode, monkeypatch):
     np.testing.assert_array_equal(qt.decode(stream, device="cpu")[0], img)
 
 
+def test_kernels_bind_once_at_first_launch():
+    """Importing the wrappers builds and binds nothing; every C entry point
+    of _build.SIGNATURES has one module-level binding; a bound entry point's
+    CUDA error raises with its name, and 0 passes."""
+    code = ("import qb3_tpu_torch.probes; from qb3_tpu_torch import _build; "
+            "from qb3_tpu_torch.ops import (chunkwalk_cuda, encode_cuda, fusedwin_cuda, "
+            "gather_cuda, pack_cuda, place_cuda, probe_cuda, wavefront_cuda); "
+            "ks = [v for m in (chunkwalk_cuda, encode_cuda, fusedwin_cuda, gather_cuda, "
+            "pack_cuda, place_cuda, probe_cuda, wavefront_cuda) for v in vars(m).values() "
+            "if isinstance(v, _build.Kernel)]; "
+            "assert sorted(k.name for k in ks) == sorted(_build.SIGNATURES), ks; "
+            "assert all(k.fn is None for k in ks); "
+            "assert _build.load.cache_info().currsize == 0")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    from qb3_tpu_torch import _build
+
+    k = _build.Kernel("qb3_gather_slabs")
+    k.fn = lambda *args: 0
+    assert k(1, 2) is None
+    k.fn = lambda *args: 700
+    with pytest.raises(RuntimeError, match="qb3_gather_slabs: CUDA error 700"):
+        k(1, 2)
+
+
 def test_import_loads_no_jax():
     code = ("import sys, qb3_tpu_torch, qb3_tpu_torch.batch, qb3_tpu_torch.benchutil, "
             "qb3_tpu_torch._build, qb3_tpu_torch.ops.chunkwalk_cuda, "
