@@ -34,7 +34,11 @@ printed on earlier lines:
      plain PyTorch twin (exact equality) and, for the probes, the probe's
      own check; median times, twin times, bounds and a one-call yardstick
      (K3 and K7 at every shape also with their device ms and host enqueue
-     us beside torch.take's);
+     us beside torch.take's; K1 and K8 at every shape with the device ms
+     and the device operations of a call from a profile, which must be the
+     kernel and at most one memset; K2 and K4 at their 128-tile launches
+     with their device ms; each probe beside its one-call copy's device
+     ms);
   4. golden bytes: the committed web fixtures (streams pinned to the C
      reference) all decoded to their raw bytes, the best-mode ones
      included, and re-encoded by the port where not best mode, the headline
@@ -234,7 +238,9 @@ def launch_times(fn, op=None) -> dict:
     profile of 20 calls, the device operations whose name holds op (all of
     them without op); enqueue_us, the host clock over many calls without a
     synchronize after a warm-up (as many as queue ~5 ms of device work, at
-    most 1000, so the launch queue never fills)."""
+    most 1000, so the launch queue never fills).  Also from the profile:
+    busy_ms, the device time of every operation the call issues, ops, how
+    many it issues, and names, theirs."""
     import torch
 
     from qb3_tpu_torch.benchutil import device_profile, median_ms
@@ -244,7 +250,7 @@ def launch_times(fn, op=None) -> dict:
     if p["attempts"] > 1:
         log(f"the profile took {p['attempts']} attempts (the earlier ones recorded no device activity)")
     dev = p["busy_ms"] if op is None else sum(v for k, v in p["per_op"].items() if op in k)
-    iters = min(1000, max(100, int(5 / max(dev, 1e-6))))
+    iters = min(1000, max(100, int(5 / max(p["busy_ms"], 1e-6))))
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -252,12 +258,29 @@ def launch_times(fn, op=None) -> dict:
         fn()
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return dict(ms=ms, device_ms=dev, enqueue_us=t / iters * 1e6)
+    return dict(ms=ms, device_ms=dev, enqueue_us=t / iters * 1e6, busy_ms=p["busy_ms"],
+                ops=p["ops"], names=sorted(p["per_op"]))
 
 
 def times_text(t: dict) -> str:
     return (f"median {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms, enqueue "
             f"{t['enqueue_us']:.2f} us")
+
+
+def pack_times_text(t: dict) -> str:
+    """A pack wrapper's times: its kernel's device ms and everything it
+    issues (ops a call and their device ms)."""
+    return (f"median {t['ms']:.4f} ms, device {t['busy_ms']:.4f} ms in {t['ops']:g} ops a call "
+            f"(kernel {t['device_ms']:.4f} ms), enqueue {t['enqueue_us']:.2f} us")
+
+
+def check_one_launch(name: str, t: dict, kernel: str):
+    """The pack wrappers (K1, K8) issue their kernel and at most
+    one memset a call."""
+    extra = [n for n in t["names"] if kernel not in n and "memset" not in n.lower()]
+    check(t["ops"] <= 2 and not extra and any(kernel in n for n in t["names"]),
+          f"{name}: {t['ops']:g} device ops a call ({t['names']}), want the kernel and at "
+          "most one memset")
 
 
 def take_windows(words32, first, width: int):
@@ -293,18 +316,16 @@ def k7_inputs(x, dev) -> dict:
     return stream_walk(api.encode(x, mode=Mode.FTL, device=dev), dev)["inp"]
 
 
-def kernel_phase(dev, card, img, tiles, u16):
-    """Phase 3: each kernel against its twin at the main path's shapes."""
+def k1_cases(img, tiles, dev):
+    """K1's shapes on the "ic" encode, one at a time: (label, the arguments
+    of pack_groups_chunked) for one u8 512x512x3 tile and BATCH of them."""
     import torch
 
     from qb3_tpu_torch import api
-    from qb3_tpu_torch.benchutil import median_ms
     from qb3_tpu_torch.constants import HILBERT
-    from qb3_tpu_torch.ops import bitpack, pack_cuda
-    from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8, chunkwalk8_plain
+    from qb3_tpu_torch.ops import bitpack
     from qb3_tpu_torch.ops.encode import encode_fast_blocks
 
-    results = {}
     n_words = api.stream_words(512, 512, 3, 0)
     maxbits = bitpack.group_bits_bound(8, best=False)
     for label, x in (("single", img), (f"batch{BATCH}", tiles)):
@@ -313,19 +334,40 @@ def kernel_phase(dev, card, img, tiles, u16):
         codes, lens, _, _ = encode_fast_blocks(api.to_carrier(x, dev), zero, zero,
                                                HILBERT, (1, 1, 1), True, 8,
                                                lanewise=bool(lead))
-        args = (codes, lens, n_words, maxbits)
+        yield label, (codes, lens, n_words, maxbits)
+
+
+def kernel_phase(dev, card, img, tiles, u16):
+    """Phase 3: each kernel against its twin at the main path's shapes."""
+    import torch
+
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.ops import bitpack, pack_cuda
+    from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8, chunkwalk8_plain
+
+    results = {}
+    for label, args in k1_cases(img, tiles, dev):
+        codes, lens = args[:2]
         got = pack_cuda.pack_groups_chunked(*args)
         err = compare("pack_groups_chunked", got, bitpack.pack_groups(*args))
         ngroups, placed = lens.numel() // lens.shape[-1], int((lens > 0).sum())
         need = (codes.numel() * CODE_BYTES[8] + lens.numel() + 2 * ngroups
                 + stream_bytes(got[1]) + nbytes(got[1]),
                 placed * PLACE_OPS * wide(8) + ngroups * GROUP_OPS)
-        ms = median_ms(lambda: pack_cuda.pack_groups_chunked(*args))
+        t1 = launch_times(lambda: pack_cuda.pack_groups_chunked(*args), "pack_groups_kernel")
+        check_one_launch(f"K1 {label}", t1, "pack_groups_kernel")
         plain = median_ms(lambda: bitpack.pack_groups(*args), 5)
-        log(f"K1 pack_groups_chunked {label} codes {tuple(codes.shape)}: equal, "
-            f"kernel {ms:.4f} ms, twin {plain:.4f} ms")
-        results.setdefault("pack_groups_chunked", (err, ms, plain, need, None))
-        del codes, lens
+        bms, by = bound(need)
+        log(f"K1 pack_groups_chunked {label} codes {tuple(codes.shape)}: equal; "
+            f"{pack_times_text(t1)}; twin {plain:.4f} ms; bound {bms:.5f} ms by {by}; the "
+            f"int64 carriers weigh {nbytes(codes, lens)} bytes ({card})")
+        if "pack_groups_chunked" in results:  # keep the first shape's times
+            err = max(err, results["pack_groups_chunked"][0])
+            results["pack_groups_chunked"] = (err,) + results["pack_groups_chunked"][1:]
+        else:
+            results["pack_groups_chunked"] = (err, t1["ms"], plain, need, None, t1["busy_ms"],
+                                              None)
+        del codes, lens, args
 
     for label, streams, ubits in k3_cases(img, tiles, u16, dev):
         a = walk_inputs(streams, dev)
@@ -351,11 +393,15 @@ def kernel_phase(dev, card, img, tiles, u16):
         log(f"K2 chunkwalk8 {label} ubits {ubits} chunks {a['starts'].shape[0]}: "
             f"equal, kernel {ms2:.4f} ms, twin {plain2:.4f} ms")
         tbits = 8 if ubits == 3 else 16
+        need2 = (payload_bytes(streams) + 4 * a["starts"].numel() + a["entry"].numel()
+                 + walked.numel() * tbits // 8, walk_ops(walked, tbits))
+        if label.startswith("batch"):  # the batch's launch, per launch as K1's
+            t2 = launch_times(lambda: chunkwalk8(*cargs), "chunkwalk")
+            log(f"K2 chunkwalk8 {label}: {times_text(t2)}; bound {bound(need2)[0]:.5f} ms by "
+                f"{bound(need2)[1]} ({card})")
         results.setdefault("extract_windows", (err3, t3["ms"], plain3, need3, tt["ms"],
                                                t3["device_ms"], tt["device_ms"]))
-        results.setdefault("chunkwalk8", (err2, ms2, plain2, (
-            payload_bytes(streams) + 4 * a["starts"].numel() + a["entry"].numel()
-            + walked.numel() * tbits // 8, walk_ops(walked, tbits)), None))
+        results.setdefault("chunkwalk8", (err2, ms2, plain2, need2, None))
         del walked, take, win
     return results
 
@@ -408,7 +454,7 @@ def ix_inputs(streams, dev):
                 per_tile=glens.shape[1])
 
 
-def ix_kernel_phase(dev, cases):
+def ix_kernel_phase(dev, card, cases):
     """Phase 3b: K4 (both modes), K5a and K5b against their twins at the
     "ix" shapes.  Returns (per-kernel results, {label: streams})."""
     import torch
@@ -435,6 +481,10 @@ def ix_kernel_phase(dev, cases):
                  walk_ops(walked[0], tb))
         ms4 = median_ms(lambda: wavefront_fused(*k4, **kw))
         plain4 = median_ms(lambda: wavefront_fused_plain(*k4[:3], tb, **kw), 3)
+        if "batch" in label and tb == 8:  # the batch's launch, per launch as K1's
+            t4 = launch_times(lambda: wavefront_fused(*k4, **kw), "fused_kernel")
+            log(f"K4 wavefront_fused {label}: {times_text(t4)}; bound {bound(need4)[0]:.5f} ms "
+                f"by {bound(need4)[1]} ({card})")
         regs = ix_regs(a["words32"], a["goff"], nreg)
         off, rung, kind = (x.to(torch.int32) for x in
                            ix_parse(regs, a["goff"], tb, a["nb"], a["per_tile"]))
@@ -474,30 +524,41 @@ def n_words_for(x) -> int:
     return api.stream_words(w, h, nb, api.DT_FROM_NP[x.dtype])
 
 
-def k8_phase(dev):
-    """Phase 3c: K8 against its twin at the wide shapes (FTL, Hilbert) and
-    u64 BASE."""
+def k8_cases(dev):
+    """K8's shapes, one at a time: (label, skipstep, raster, phase A's
+    result, the arguments of encode_pack_image) at the four wide shapes
+    (FTL) and u64 1024x1024x1 BASE, Hilbert curve."""
     from qb3_tpu_torch import api
-    from qb3_tpu_torch.benchutil import WIDE_IMAGES, median_ms, wide_image
+    from qb3_tpu_torch.benchutil import WIDE_IMAGES, wide_image
     from qb3_tpu_torch.constants import HILBERT
-    from qb3_tpu_torch.ops.encode_cuda import (encode_pack_image, encode_pack_image_plain,
-                                               image_pack_args)
+    from qb3_tpu_torch.ops.encode_cuda import image_pack_args
     from qb3_tpu_torch.ops.encode_image import phase_a_image
 
-    res = None
     for label, skipstep in [(k, True) for k in WIDE_IMAGES] + [("u64 1024x1024x1", False)]:
         x = wide_image(label)
         nb = x.shape[2]
         zero = api.to_carrier(np.zeros(nb, x.dtype), dev)
         o = phase_a_image(api.to_carrier(x, dev), zero, zero, HILBERT,
                           tuple(api.default_cband(nb)), skipstep, 8 * x.itemsize)
+        yield label, skipstep, x, o, image_pack_args(o, 8 * x.itemsize, n_words_for(x), HILBERT)
+
+
+def k8_phase(dev, card):
+    """Phase 3c: K8 against its twin at the wide shapes (FTL, Hilbert) and
+    u64 BASE, with each shape's median, device ms, device ops a call and
+    host enqueue."""
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.ops.encode_cuda import encode_pack_image, encode_pack_image_plain
+
+    res = None
+    for label, skipstep, x, o, args in k8_cases(dev):
         tb = 8 * x.itemsize
-        args = image_pack_args(o, tb, n_words_for(x), HILBERT)
         words, total, glen = encode_pack_image(*args)
         pw, pt, pg = encode_pack_image_plain(*args)
         used = (int(pt) + 31) // 32
         err = compare("encode_pack_image", (words[:used], total, glen), (pw[:used], pt, pg))
-        ms = median_ms(lambda: encode_pack_image(*args))
+        t8 = launch_times(lambda: encode_pack_image(*args), "encode_pack_image_kernel")
+        check_one_launch(f"K8 {label}", t8, "encode_pack_image_kernel")
         plain = median_ms(lambda: encode_pack_image_plain(*args), 5)
         ng, gkind = glen.numel(), args[2]
         need = (x.nbytes + ng * (7 + 2) + stream_bytes(total) + nbytes(total),
@@ -505,11 +566,12 @@ def k8_phase(dev):
                       + int((gkind == 1).sum()) * PLACE_OPS) + ng * GROUP_OPS)
         bms, by = bound(need)
         log(f"K8 encode_pack_image {label} {'FTL' if skipstep else 'BASE'} groups "
-            f"{ng} max rung {int(o['rung'].max())}: equal, kernel {ms:.4f} ms, "
+            f"{ng} max rung {int(o['rung'].max())}: equal; {pack_times_text(t8)}; "
             f"twin {plain:.4f} ms, bound {bms:.4f} ms by {by} ({need[0]} bytes, "
             f"{need[1]} integer operations; the int64 carriers move "
-            f"{nbytes(*args[:5], glen) + stream_bytes(total)} bytes)")
-        res = (max(err, res[0]),) + res[1:] if res else (err, ms, plain, need, None)
+            f"{nbytes(*args[:6]) + stream_bytes(total)} bytes) ({card})")
+        res = ((max(err, res[0]),) + res[1:] if res
+               else (err, t8["ms"], plain, need, None, t8["busy_ms"], None))
         del o, args, words, pw
     return {"encode_pack_image": res}
 
@@ -704,6 +766,7 @@ def probe_phase(dev, card):
         p = device_profile(lambda: kern(*args))
         kname = "flatten_kernel" if name.startswith("flatten") else f"{kern.__name__}_kernel"
         dev_ms = sum(v for op, v in p["per_op"].items() if kname in op)
+        lib_dev = device_profile(lib_fn)["busy_ms"] if lib_fn is not None else None
         tensors = [a for a in args if torch.is_tensor(a)]
         if name == "dim0_dot":
             need = (nbytes(*tensors, got), 2 * np.prod(args[0].shape) * args[1].shape[1],
@@ -715,8 +778,9 @@ def probe_phase(dev, card):
         bms, by = bound(need)
         log(f"P {name} {kern.__name__} {tuple(got.shape)}: equal to its twin, probe check OK, "
             f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.4f} ms, library "
-            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.6f} ms by {by} ({card})")
-        results[f"probe_{name}"] = (err, ms, plain_ms, need, lib, dev_ms, None)
+            f"{'none' if lib is None else f'{lib:.4f} ms (device {lib_dev:.4f} ms)'}, bound "
+            f"{bms:.6f} ms by {by} ({card})")
+        results[f"probe_{name}"] = (err, ms, plain_ms, need, lib, dev_ms, lib_dev)
     return results
 
 
@@ -1226,9 +1290,9 @@ def main() -> int:
     log("# phase 3: kernels against their twins")
     kres = kernel_phase(dev, card, img, tiles, u16)
     cases = ix_cases()
-    ix_res, ix_streams = ix_kernel_phase(dev, cases)
+    ix_res, ix_streams = ix_kernel_phase(dev, card, cases)
     kres.update(ix_res)
-    kres.update(k8_phase(dev))
+    kres.update(k8_phase(dev, card))
     kres.update(k7_phase(dev, card, img, wide_image("u64 1024x1024x1")))
     for name, err in k5_best_phase(dev, card).items():
         kres[name] = (max(err, kres[name][0]),) + kres[name][1:]
@@ -1451,7 +1515,8 @@ def main() -> int:
 
     line = []
     for name in KERNELS:
-        # device ms (profiled: K3, K6, K7, P1-P7) and the library call's, else None
+        # device ms (profiled: K1, K3, K6, K7, K8, P1-P7; K1 and K8 all they issue) and
+        # the library call's, else None
         err, ms, plain, need, lib, dev_ms, lib_dev = (*kres[name], None, None)[:7]
         bms, by = bound(need)
         line.append({"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I64, _I32, _U64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64
 # C entry point -> argument types; every entry point returns cudaGetLastError()
 SIGNATURES = {
-    "qb3_pack_groups": [_P, _P, _P, _I64, _I32, _I64, _I64, _P, _P],
+    "qb3_pack_groups": [_P, _P, _I64, _I64, _I32, _I64, _P, _P, _P, _P, _I64, _I64, _P],
     "qb3_extract_windows": [_P, _I64, _P, _I32, _I32, _P, _P],
     "qb3_chunkwalk": [_P, _I64, _P, _P, _I32, _P, _P, _I64, _I32, _I32, _I32,
                       _I32, _P, _P],
@@ -35,7 +35,8 @@ SIGNATURES = {
     "qb3_wavefront_wide": [_P, _I64, _I32, _I32, _P, _P, _P, _P, _P, _P],
     "qb3_wavefront_fused": [_P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _I64, _I32,
                             _P, _P, _P, _P, _P, _P, _P],
-    "qb3_encode_pack_image": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _U64, _I64, _P, _P],
+    "qb3_encode_pack_image": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _U64, _I64, _P, _P,
+                              _P, _P, _I64, _I64, _P],
     "qb3_gather_slabs": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
     "qb3_place_slabs": [_P, _P, _I64, _I32, _P, _I64, _P],
     "qb3_probe_dim0_dot": [_P, _P, _I32, _I32, _I32, _P, _P],

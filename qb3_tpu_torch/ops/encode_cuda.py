@@ -15,7 +15,7 @@ from .. import _build
 from ..constants import B, B2, curve_offsets
 from .bitpack import group_bits_bound, pack_groups
 from .encode import value_codes_arith
-from .pack_cuda import on_cpu, require, stream_ptr
+from .pack_cuda import PACK_G, on_cpu, pack_buffers, require, stream_ptr
 
 _K8 = _build.Kernel("qb3_encode_pack_image")
 
@@ -71,7 +71,8 @@ def encode_pack_image(m, rung, gkind, pcode, plen, glen, tbits: int, n_words: in
     multiples of 4; rung, gkind (0 normal / 1 bits / 2 zero),
     pcode, plen, glen: (ngroups,) int64 in raster-block x band order; order:
     the scan curve.  Returns (words (n_words,) int32 u32 patterns, total
-    bits int64, glen int32), as K1's wrapper does."""
+    bits int64, glen int32), as K1's wrapper does, after one memset and
+    one launch: the kernel scans glen itself.  At most 256 bands."""
     if on_cpu(m):
         return encode_pack_image_plain(m, rung, gkind, pcode, plen, glen, tbits, n_words,
                                        order)
@@ -80,14 +81,16 @@ def encode_pack_image(m, rung, gkind, pcode, plen, glen, tbits: int, n_words: in
     for name, x in groups.items():
         require(x, torch.int64, name, 1, m.device)
     _check_shapes(m, groups.values())
-    gend = torch.cumsum(glen, 0)
-    goff = gend - glen
-    out = torch.zeros(n_words, dtype=torch.int32, device=m.device)
+    h, w, nb = m.shape
+    if nb > 2 * PACK_G:
+        raise ValueError(f"{nb} bands: the kernel takes at most {2 * PACK_G}")
+    nby, nbx = h // B, w // B
+    nblocks = nby * -(-nbx // max(1, PACK_G // nb))  # blocks of one block-row's groups
+    words, total, glen32, ptrs = pack_buffers((), rung.shape[0], n_words, nblocks, m.device)
     _K8(m.data_ptr(), rung.data_ptr(), gkind.data_ptr(), pcode.data_ptr(), plen.data_ptr(),
-        goff.data_ptr(), rung.shape[0], m.shape[1] // B, m.shape[2], order, n_words,
-        out.data_ptr(), stream_ptr(m.device))
+        glen.data_ptr(), nby, nbx, nb, order, n_words, *ptrs, nblocks, stream_ptr(m.device))
     encode_pack_image.launches += 1
-    return out, gend[-1], glen.to(torch.int32)
+    return words, total, glen32
 
 
 encode_pack_image.launches = 0

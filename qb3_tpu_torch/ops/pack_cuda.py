@@ -9,14 +9,18 @@ attribute counts its kernel launches.
 
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
 
 from .. import _build
-from .bitpack import group_offsets, pack_groups
+from .bitpack import pack_groups
 
 _K1 = _build.Kernel("qb3_pack_groups")
 _K3 = _build.Kernel("qb3_extract_windows")
+
+PACK_G = 128  # groups a K1 block packs, and a K8 block at most (csrc/pack.cu kGroups)
+PACK_MAX_S = 64  # symbols a group at most (csrc/pack.cu kMaxSymbols)
 
 
 def on_cpu(x) -> bool:
@@ -49,12 +53,45 @@ def stream_ptr(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def _strides(shape) -> tuple:
+    """A contiguous tensor's strides."""
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def pack_buffers(lead, ngroups: int, n_words: int, nblocks: int, device):
+    """One allocation for what a pack kernel (K1, K8) writes, in 8-byte
+    units: words (*lead, n_words) int32, total (*lead) int64, then the
+    look-back's ticket and nblocks state words, which the kernel's memset
+    zeroes with the words and totals, then glen (*lead, ngroups) int32.
+    Returns (words, total, glen, the C entry point's pointer arguments: out,
+    total, glen, scratch, zero_bytes).  The outputs are strided views of the
+    one buffer (cheaper on the host than slices and reshapes)."""
+    lead = tuple(lead)
+    ntiles = math.prod(lead)
+    w_end = (ntiles * n_words + 1) // 2
+    t_end = w_end + ntiles
+    z_end = t_end + 1 + nblocks
+    buf = torch.empty(z_end + (ntiles * ngroups + 1) // 2, dtype=torch.int64, device=device)
+    b32 = buf.view(torch.int32)
+    words = b32.as_strided((*lead, n_words), _strides((*lead, n_words)), 0)
+    total = buf.as_strided(lead, _strides(lead), w_end)
+    glen = b32.as_strided((*lead, ngroups), _strides((*lead, ngroups)), 2 * z_end)
+    ptr = buf.data_ptr()
+    return words, total, glen, (ptr, ptr + 8 * w_end, ptr + 8 * z_end, ptr + 8 * t_end, 8 * z_end)
+
+
 def pack_groups_chunked(codes, lens, n_words: int, max_group_bits: int):
     """K1: encode phase B.  codes (..., ngroups, S) int64 bit patterns, lens
     (..., ngroups, S) int32 -> (words (..., n_words) int32 u32 patterns,
     total bits (...) int64, glen (..., ngroups) int32); leading axes are
     independent tiles.  max_group_bits sizes the twin's slabs; the kernel
-    needs no bound."""
+    needs no bound.  One memset and one launch: the kernel scans the group
+    lengths itself.  Lengths outside [0, 64] are the twin's undefined
+    inputs; the kernel clamps them into it."""
     if on_cpu(codes):
         return pack_groups(codes, lens, n_words, max_group_bits)
     require(codes, torch.int64, "codes")
@@ -62,14 +99,15 @@ def pack_groups_chunked(codes, lens, n_words: int, max_group_bits: int):
     if lens.shape != codes.shape:
         raise ValueError("codes and lens shapes differ")
     *lead, ngroups, S = codes.shape
-    ntiles = int(np.prod(lead, dtype=np.int64))
-    glen, goff, total = group_offsets(lens)
-    goff = goff.contiguous()
-    out = torch.zeros(*lead, n_words, dtype=torch.int32, device=codes.device)
-    _K1(codes.data_ptr(), lens.data_ptr(), goff.data_ptr(), ntiles * ngroups, S, ngroups,
-        n_words, out.data_ptr(), stream_ptr(codes.device))
+    if not 1 <= S <= PACK_MAX_S:
+        raise ValueError(f"{S} symbols a group: the kernel takes 1 to {PACK_MAX_S}")
+    ntiles = math.prod(lead)
+    nblocks = ntiles * -(-ngroups // PACK_G)
+    words, total, glen, ptrs = pack_buffers(lead, ngroups, n_words, nblocks, codes.device)
+    _K1(codes.data_ptr(), lens.data_ptr(), ntiles, ngroups, S, n_words, *ptrs, nblocks,
+        stream_ptr(codes.device))
     pack_groups_chunked.launches += 1
-    return out, total, glen.to(torch.int32)
+    return words, total, glen
 
 
 pack_groups_chunked.launches = 0

@@ -22,10 +22,10 @@ import torch
 
 import qb3_tpu_torch as qt
 from qb3_tpu_torch import container, probes
-from qb3_tpu_torch.api import (_fused_ix_params, ic_inputs, padded_words, stream_words,
-                               to_carrier)
+from qb3_tpu_torch.api import (_fused_ix_params, default_cband, ic_inputs, padded_words,
+                               stream_words, to_carrier)
 from qb3_tpu_torch.batch import _flat_tile_layout
-from qb3_tpu_torch.benchutil import LANDSAT_SAMPLE, headline_image
+from qb3_tpu_torch.benchutil import LANDSAT_SAMPLE, device_profile, headline_image
 from qb3_tpu_torch.constants import HILBERT, TYPESIZES, ZCURVE, Mode, is_best_mode
 from qb3_tpu_torch.ops import bitpack, pack_cuda
 from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8, chunkwalk8_plain
@@ -43,6 +43,7 @@ from qb3_tpu_torch.stitch import stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 
+from . import pack_edges
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,6 +84,38 @@ def test_k1_matches_twin(cuda, dtype, lead):
     want = bitpack.pack_groups(codes, lens, n_words, maxbits)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _one_launch(fn, kernel: str):
+    """A call's device operations, from the profiler: the kernel once and at
+    most one memset."""
+    ops = device_profile(fn, 5)["per_op"]
+    assert any(kernel in op for op in ops), ops
+    assert all(kernel in op or "memset" in op.lower() for op in ops), ops
+    assert len(ops) <= 2, ops
+
+
+@pytest.mark.parametrize("name", list(pack_edges.K1_CASES))
+def test_k1_edges_match_twin(cuda, name):
+    """K1's block scan, look-back, shared-memory window and stores on the
+    inputs that can break them (tests/pack_edges.py), tolerance zero; one
+    kernel and at most one memset a call."""
+    codes, lens, n_words = pack_edges.k1_case(name)
+    codes = torch.from_numpy(codes.view(np.int64)).to(cuda)
+    lens = torch.from_numpy(lens).to(cuda)
+    for c, ln in ((codes, lens), (codes[0], lens[0])):  # the tile axis, and one tile alone
+        before = pack_cuda.pack_groups_chunked.launches
+        got = pack_cuda.pack_groups_chunked(c, ln, n_words, 64 * c.shape[-1])
+        torch.cuda.synchronize()
+        assert pack_cuda.pack_groups_chunked.launches == before + 1
+        want = bitpack.pack_groups(c, ln, n_words, 64 * c.shape[-1])
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, w)
+    if name == "truncated":
+        assert int(got[1]) > 32 * n_words
+    _one_launch(lambda: pack_cuda.pack_groups_chunked(codes, lens, n_words, 64),
+                "pack_groups_kernel")
 
 
 def test_k3_matches_twin(cuda):
@@ -308,6 +341,39 @@ def test_k8_matches_twin(cuda, dtype, shape, order, cband, skipstep):
         assert torch.equal(g, x)
     if not skipstep and dtype == np.uint64:
         assert int(o["rung"].max()) == 63
+
+
+@pytest.mark.parametrize("name", list(pack_edges.K8_CASES))
+def test_k8_edges_match_twin(cuda, name):
+    """K8's staged row segments, block scan, look-back, window and stores at
+    1, 3, 8, 13 and 200 bands, one group, a block of zero-length groups,
+    block edges at every bit phase, truncation and 65-bit codes, tolerance
+    zero; one kernel and at most one memset a call."""
+    img = pack_edges.k8_image(name)
+    h, w, nb = img.shape
+    tbits = 8 * img.itemsize
+    o = phase_a_image(to_carrier(img, cuda), torch.zeros(nb, dtype=torch.int64, device=cuda),
+                      torch.zeros(nb, dtype=torch.int32, device=cuda), HILBERT,
+                      tuple(default_cband(nb)), tbits == 64, tbits)
+    args = list(image_pack_args(o, tbits, stream_words(w, h, nb, {16: 2, 32: 4, 64: 6}[tbits]),
+                                HILBERT))
+    fields = [args[i].cpu().numpy() for i in (2, 3, 4, 5)]  # gkind, pcode, plen, glen
+    pack_edges.k8_edit(name, *fields)
+    args[2:6] = [torch.from_numpy(f).to(cuda) for f in fields]
+    args[7] = pack_edges.k8_n_words(name, fields[3], args[7])
+    before = encode_pack_image.launches
+    got = encode_pack_image(*args)
+    torch.cuda.synchronize()
+    assert encode_pack_image.launches == before + 1
+    want = encode_pack_image_plain(*args)
+    for g, x in zip(got, want):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.equal(g, x)
+    if name == "truncated":
+        assert int(got[1]) > 32 * args[7]
+    if name == "u64-65-bit":
+        assert int(o["rung"].max()) == 63
+    _one_launch(lambda: encode_pack_image(*args), "encode_pack_image_kernel")
 
 
 @pytest.mark.parametrize("dtype,mode", [(np.uint16, Mode.FTL), (np.uint32, Mode.BASE_Z),

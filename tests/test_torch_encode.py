@@ -19,7 +19,7 @@ from qb3_tpu_torch.constants import HILBERT, ZCURVE
 from qb3_tpu_torch.ops import bitpack, pack_cuda
 from qb3_tpu_torch.ops.encode import encode_fast_blocks
 
-from . import corpus
+from . import corpus, pack_edges
 
 # one compile per shape instead of op-by-op dispatch
 j_encode_fast_blocks = jax.jit(
@@ -139,3 +139,30 @@ def test_pack_twin_matches_pallas_kernel_interpret():
     assert int(tt) == int(jt)
     np.testing.assert_array_equal(tg.numpy(), np.asarray(jg).astype(np.int32))
     np.testing.assert_array_equal(tw.numpy().view(np.uint32)[:nw], np.asarray(jw)[:nw])
+
+
+@pytest.mark.parametrize("name", list(pack_edges.K1_CASES))
+def test_pack_twin_edges_match_pallas_kernel_interpret(name):
+    """K1's twin against the Pallas kernel on small versions of the inputs
+    that can break the CUDA kernel's block scan, look-back and stores
+    (tests/pack_edges.py): one group, a ragged group count, several tiles
+    (the Pallas kernel packs one a call), a block of zero-length groups,
+    block edges at several bit phases, truncation and 65-bit codes."""
+    from qb3_tpu.ops.pack_pallas import pack_groups_chunked
+
+    codes, lens, n_words = pack_edges.k1_case(name, small=True)
+    maxbits = -(-int(lens.astype(np.int64).sum(-1).max()) // 64) * 64
+    tw, tt, tg = bitpack.pack_groups(torch.from_numpy(codes.view(np.int64)),
+                                     torch.from_numpy(lens), n_words, maxbits)
+    wide = int(lens.max()) > 32
+    for t in range(codes.shape[0]):
+        jc = codes[t] if wide else codes[t].astype(np.uint32)
+        jw, jt, jg = pack_groups_chunked(jnp.asarray(jc), jnp.asarray(lens[t]), n_words, maxbits,
+                                         interpret=True)
+        nw = min(n_words, (int(jt) + 31) // 32)
+        assert int(tt[t]) == int(jt)
+        np.testing.assert_array_equal(tg[t].numpy(), np.asarray(jg).astype(np.int32))
+        np.testing.assert_array_equal(tw[t].numpy().view(np.uint32)[:nw], np.asarray(jw)[:nw])
+        assert not tw[t, nw:].any()
+    if name == "truncated":
+        assert int(tt[0]) > 32 * n_words

@@ -30,7 +30,7 @@ from qb3_tpu_torch.ops import encode_cuda
 from qb3_tpu_torch.ops.bitpack import group_bits_bound
 from qb3_tpu_torch.ops.encode_image import phase_a_image
 
-from . import corpus
+from . import corpus, pack_edges
 
 # one compile per shape instead of op-by-op dispatch
 j_phase_a_image = jax.jit(jencode_image.phase_a_image,
@@ -188,6 +188,39 @@ def test_k8_twin_matches_pallas_kernel_interpret(name):
     np.testing.assert_array_equal(words.numpy().view(np.uint32)[:nw], np.asarray(jw)[:nw])
     if "rung63" in name:
         assert int(rung.max()) == 63
+
+
+@pytest.mark.parametrize("name", list(pack_edges.K8_SMALL))
+def test_k8_twin_edges_match_pallas_kernel_interpret(name):
+    """K8's twin against the Pallas kernel on small versions of the inputs
+    that can break the CUDA kernel (tests/pack_edges.py) that the Pallas
+    kernel's shape rule admits: 1, 3, 8 and 13 bands, a block of zero-length
+    groups, block edges at every bit phase, truncation."""
+    img = pack_edges.k8_image(name, small=True)
+    prev, runbits = _entry_state(img, seed=len(name))
+    args = list(_k8_args(_port_phase_a(img, prev, runbits, HILBERT,
+                                       tuple(api.default_cband(img.shape[2])), True),
+                         img, HILBERT))
+    fields = [args[i].numpy().copy() for i in (2, 3, 4, 5)]  # gkind, pcode, plen, glen
+    pack_edges.k8_edit(name, *fields)
+    args[2:6] = [torch.from_numpy(f) for f in fields]
+    args[7] = pack_edges.k8_n_words(name, fields[3], args[7])
+    m, rung, gkind, pcode, plen, glen, tbits, n_words, _ = args
+    words, total, glen32 = encode_cuda.encode_pack_image(*args)
+    mu = _u64(m)
+    i32 = lambda x: jnp.asarray(x.numpy().astype(np.int32))  # noqa: E731
+    jw, jt, jg = j_encode_pack_image(
+        jnp.asarray((mu & np.uint64(0xFFFFFFFF)).astype(np.uint32)), None, i32(rung),
+        i32(gkind), jnp.asarray(pcode.numpy().astype(np.uint32)), i32(plen), i32(glen), tbits,
+        n_words, group_bits_bound(tbits, best=False), m.shape[1] // 4, m.shape[2], HILBERT,
+        interpret=True)
+    nw = min(n_words, (int(jt) + 31) // 32)
+    assert int(total) == int(jt)
+    np.testing.assert_array_equal(glen32.numpy(), np.asarray(jg).astype(np.int32))
+    np.testing.assert_array_equal(words.numpy().view(np.uint32)[:nw], np.asarray(jw)[:nw])
+    assert not words[nw:].any()
+    if name == "truncated":
+        assert int(total) > 32 * n_words
 
 
 def test_k8_twin_checks_its_inputs():
