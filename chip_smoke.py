@@ -30,15 +30,15 @@ printed on earlier lines:
      damaged 512x512x3 BASE_H stream whose walk meets best-mode codes, and
      u32 / u64 random windows over every kind, with kind counts, then (3e)
      K6 (slab placement) at the slabs of the u8 4096x4096x3 strip encode's
-     stitch, then (3f) P1-P7 at their probes' shapes, each against its
+     stitch, then (3f) P1-P7 at their probes' shapes, then (3g) K4 and K2
+     on the edge inputs of tests/walk_edges.py, each against its
      plain PyTorch twin (exact equality) and, for the probes, the probe's
      own check; median times, twin times, bounds and a one-call yardstick
      (K3 and K7 at every shape also with their device ms and host enqueue
-     us beside torch.take's; K1 and K8 at every shape with the device ms
-     and the device operations of a call from a profile, which must be the
-     kernel and at most one memset; K2 and K4 at their 128-tile launches
-     with their device ms; each probe beside its one-call copy's device
-     ms);
+     us beside torch.take's; K1, K8, K4 and K2 at every shape with the
+     device ms and the device operations of a call from a profile, which
+     must be the kernel and at most one memset, for K2 the kernel alone;
+     each probe beside its one-call copy's device ms);
   4. golden bytes: the committed web fixtures (streams pinned to the C
      reference) all decoded to their raw bytes, the best-mode ones
      included, and re-encoded by the port where not best mode, the headline
@@ -232,6 +232,18 @@ def compare(name, got, want):
     return err
 
 
+def profiled(fn, iters: int = 10) -> dict:
+    """benchutil.device_profile, logging a profile that had to be taken
+    again or that still lacks device kernels (the profiler's lost records)."""
+    from qb3_tpu_torch.benchutil import device_profile
+
+    p = device_profile(fn, iters)
+    if p["attempts"] > 1 or p["lost"]:
+        log(f"the profile took {p['attempts']} attempts"
+            + (f"; the one kept lacks {p['lost']} of its kernels" if p["lost"] else ""))
+    return p
+
+
 def launch_times(fn, op=None) -> dict:
     """One call's times three ways: ms, the median between CUDA events of 50
     calls (the larger of host enqueue and device time); device_ms, from a
@@ -243,12 +255,10 @@ def launch_times(fn, op=None) -> dict:
     many it issues, and names, theirs."""
     import torch
 
-    from qb3_tpu_torch.benchutil import device_profile, median_ms
+    from qb3_tpu_torch.benchutil import median_ms
 
     ms = median_ms(fn, 50)
-    p = device_profile(fn, 20)
-    if p["attempts"] > 1:
-        log(f"the profile took {p['attempts']} attempts (the earlier ones recorded no device activity)")
+    p = profiled(fn, 20)
     dev = p["busy_ms"] if op is None else sum(v for k, v in p["per_op"].items() if op in k)
     iters = min(1000, max(100, int(5 / max(p["busy_ms"], 1e-6))))
     fn()
@@ -274,13 +284,13 @@ def pack_times_text(t: dict) -> str:
             f"(kernel {t['device_ms']:.4f} ms), enqueue {t['enqueue_us']:.2f} us")
 
 
-def check_one_launch(name: str, t: dict, kernel: str):
-    """The pack wrappers (K1, K8) issue their kernel and at most
-    one memset a call."""
-    extra = [n for n in t["names"] if kernel not in n and "memset" not in n.lower()]
-    check(t["ops"] <= 2 and not extra and any(kernel in n for n in t["names"]),
-          f"{name}: {t['ops']:g} device ops a call ({t['names']}), want the kernel and at "
-          "most one memset")
+def check_one_launch(name: str, t: dict, kernel: str, memset: bool = True):
+    """K1, K8 and K4 issue their kernel and at most one memset a call, K2
+    (memset False) its kernel alone."""
+    extra = [n for n in t["names"] if kernel not in n and not (memset and "memset" in n.lower())]
+    check(t["ops"] <= 1 + memset and not extra and any(kernel in n for n in t["names"]),
+          f"{name}: {t['ops']:g} device ops a call ({t['names']}), want the kernel"
+          + (" and at most one memset" if memset else " alone"))
 
 
 def take_windows(words32, first, width: int):
@@ -388,20 +398,19 @@ def kernel_phase(dev, card, img, tiles, u16):
                  a["nb"], False, ubits)
         walked = chunkwalk8(*cargs)
         err2 = compare("chunkwalk8", walked, chunkwalk8_plain(*cargs))
-        ms2 = median_ms(lambda: chunkwalk8(*cargs))
+        t2 = launch_times(lambda: chunkwalk8(*cargs), "chunkwalk")
+        check_one_launch(f"K2 {label}", t2, "chunkwalk", memset=False)
         plain2 = median_ms(lambda: chunkwalk8_plain(*cargs), 3)
-        log(f"K2 chunkwalk8 {label} ubits {ubits} chunks {a['starts'].shape[0]}: "
-            f"equal, kernel {ms2:.4f} ms, twin {plain2:.4f} ms")
         tbits = 8 if ubits == 3 else 16
         need2 = (payload_bytes(streams) + 4 * a["starts"].numel() + a["entry"].numel()
                  + walked.numel() * tbits // 8, walk_ops(walked, tbits))
-        if label.startswith("batch"):  # the batch's launch, per launch as K1's
-            t2 = launch_times(lambda: chunkwalk8(*cargs), "chunkwalk")
-            log(f"K2 chunkwalk8 {label}: {times_text(t2)}; bound {bound(need2)[0]:.5f} ms by "
-                f"{bound(need2)[1]} ({card})")
+        bms, by = bound(need2)
+        log(f"K2 chunkwalk8 {label} ubits {ubits} chunks {a['starts'].shape[0]}: equal; "
+            f"{pack_times_text(t2)}; twin {plain2:.4f} ms; bound {bms:.5f} ms by {by} ({card})")
         results.setdefault("extract_windows", (err3, t3["ms"], plain3, need3, tt["ms"],
                                                t3["device_ms"], tt["device_ms"]))
-        results.setdefault("chunkwalk8", (err2, ms2, plain2, need2, None))
+        results.setdefault("chunkwalk8", (err2, t2["ms"], plain2, need2, None, t2["busy_ms"],
+                                          None))
         del walked, take, win
     return results
 
@@ -479,12 +488,13 @@ def ix_kernel_phase(dev, card, cases):
         ng = a["goff"].numel()
         need4 = (payload_bytes(streams) + ng * (4 + 16 * tb // 8 + 1),
                  walk_ops(walked[0], tb))
-        ms4 = median_ms(lambda: wavefront_fused(*k4, **kw))
+        t4 = launch_times(lambda: wavefront_fused(*k4, **kw), "fused_kernel")
+        check_one_launch(f"K4 {label}", t4, "fused_kernel")
+        ms4 = t4["ms"]
         plain4 = median_ms(lambda: wavefront_fused_plain(*k4[:3], tb, **kw), 3)
-        if "batch" in label and tb == 8:  # the batch's launch, per launch as K1's
-            t4 = launch_times(lambda: wavefront_fused(*k4, **kw), "fused_kernel")
-            log(f"K4 wavefront_fused {label}: {times_text(t4)}; bound {bound(need4)[0]:.5f} ms "
-                f"by {bound(need4)[1]} ({card})")
+        bms, by = bound(need4)
+        log(f"K4 wavefront_fused {label}: {pack_times_text(t4)}; bound {bms:.5f} ms by {by} "
+            f"({card})")
         regs = ix_regs(a["words32"], a["goff"], nreg)
         off, rung, kind = (x.to(torch.int32) for x in
                            ix_parse(regs, a["goff"], tb, a["nb"], a["per_tile"]))
@@ -506,13 +516,60 @@ def ix_kernel_phase(dev, card, cases):
         ms5 = median_ms(lambda: kern(*k5))
         plain5 = median_ms(lambda: plain(*k5), 3)
         log(f"K5 {name} {label}: equal, kernel {ms5:.4f} ms, twin {plain5:.4f} ms")
-        for kname, res in (("wavefront_fused", (err4, ms4, plain4, need4, None)),
+        for kname, res in (("wavefront_fused", (err4, ms4, plain4, need4, None,
+                                                t4["busy_ms"], None)),
                            (name, (err5, ms5, plain5, need5, None))):
             if kname in results:  # keep the first shape's times, the worst error
                 res = (max(res[0], results[kname][0]),) + results[kname][1:]
             results[kname] = res
         del regs, k5, given, walked, walked5
     return results, all_streams
+
+
+def walk_edge_phase(dev, card) -> dict:
+    """Phase 3g: K4 (both modes, at its staged span and at a span of 64
+    words that most windows leave) and K2 against their twins on the edge
+    inputs of tests/walk_edges.py: tiles that start inside a block, long
+    tiles, blocks of several rounds, 1 to 256 bands, damaged lengths,
+    corrupt chunks, every width.  Returns each kernel's largest error."""
+    import torch
+
+    from qb3_tpu_torch.api import _fused_ix_params
+    from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8, chunkwalk8_plain
+    from qb3_tpu_torch.ops.decode import ix_parse, ix_regs
+    from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
+    from qb3_tpu_torch.ops.pack_cuda import extract_windows
+    from tests import walk_edges
+
+    err = {"wavefront_fused": 0, "chunkwalk8": 0}
+    for name in walk_edges.K4_CASES:
+        words32, glens, tbits, nb, nblocks, ntiles, tw32, step = walk_edges.k4_case(name)
+        nreg, R = _fused_ix_params(glens.reshape(ntiles, -1), tbits, tw32)
+        per_tile = nblocks * nb
+        g2 = glens.reshape(ntiles, per_tile).astype(np.int64)
+        goff = np.cumsum(g2, 1) - g2 + np.arange(ntiles)[:, None] * tw32 * 32
+        w = torch.from_numpy(words32).to(dev)
+        go = torch.from_numpy(goff.reshape(-1).astype(np.int32)).to(dev)
+        off, rung, kind = (x.to(torch.int32) for x in
+                           ix_parse(ix_regs(w, go, nreg), go, tbits, nb, per_tile))
+        for kw in (dict(nbands=nb, per_tile=per_tile), dict(off=off, rung=rung, kind=kind)):
+            want = wavefront_fused_plain(w, go, nreg, tbits, apply_step=step, **kw)
+            for r in (R, 64):
+                err["wavefront_fused"] = max(err["wavefront_fused"], compare(
+                    f"wavefront_fused {name}",
+                    wavefront_fused(w, go, nreg, r, tbits, apply_step=step, **kw), want))
+        log(f"K4 edge {name}: {go.numel()} groups, {nb} bands, tiles of {per_tile}: equal in "
+            f"both modes at spans of {R} and 64 words")
+    for name in walk_edges.K2_CASES:
+        words32, starts, entry, ubits, nb, k, step, maxw, R = walk_edges.k2_case(name)
+        w, st, en = (torch.from_numpy(x).to(dev) for x in (words32, starts, entry))
+        wrow = (st[::128] >> 5) >> 7
+        args = (w, extract_windows(w, wrow, R), wrow, st, en, k, nb, step, ubits)
+        err["chunkwalk8"] = max(err["chunkwalk8"], compare(f"chunkwalk8 {name}",
+                                                           chunkwalk8(*args),
+                                                           chunkwalk8_plain(*args)))
+        log(f"K2 edge {name}: {st.numel()} chunks, {nb} bands, ubits {ubits}: equal")
+    return err
 
 
 def n_words_for(x) -> int:
@@ -661,7 +718,7 @@ def k5_best_phase(dev, card):
     import torch
 
     from qb3_tpu_torch import api
-    from qb3_tpu_torch.benchutil import (LANDSAT_SAMPLE, device_profile, headline_image,
+    from qb3_tpu_torch.benchutil import (LANDSAT_SAMPLE, headline_image,
                                          median_ms)
     from qb3_tpu_torch.constants import Mode
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs
@@ -711,7 +768,7 @@ def k5_best_phase(dev, card):
         errs[name] = max(errs.get(name, 0), compare(name, got, plain(*args, a["cf"])))
         ms = median_ms(lambda: kern(*args, a["cf"]))
         plain_ms = median_ms(lambda: plain(*args, a["cf"]), 3)
-        p = device_profile(lambda: kern(*args, a["cf"]))
+        p = profiled(lambda: kern(*args, a["cf"]))
         dev_ms = sum(v for op, v in p["per_op"].items() if f"{name}_kernel" in op)
         need = k5_need(got, a, tb)
         bms, by = bound(need)
@@ -729,7 +786,7 @@ def probe_phase(dev, card):
     import torch
 
     from qb3_tpu_torch import probes
-    from qb3_tpu_torch.benchutil import device_profile, median_ms
+    from qb3_tpu_torch.benchutil import median_ms
 
     def library(name, args):
         if name == "dim0_dot":  # bf16 out, rounded: timed only
@@ -763,10 +820,10 @@ def probe_phase(dev, card):
         ms = median_ms(lambda: kern(*args))
         plain_ms = median_ms(lambda: plain(*args), 5)
         lib = median_ms(lib_fn) if lib_fn is not None else None
-        p = device_profile(lambda: kern(*args))
+        p = profiled(lambda: kern(*args))
         kname = "flatten_kernel" if name.startswith("flatten") else f"{kern.__name__}_kernel"
         dev_ms = sum(v for op, v in p["per_op"].items() if kname in op)
-        lib_dev = device_profile(lib_fn)["busy_ms"] if lib_fn is not None else None
+        lib_dev = profiled(lib_fn)["busy_ms"] if lib_fn is not None else None
         tensors = [a for a in args if torch.is_tensor(a)]
         if name == "dim0_dot":
             need = (nbytes(*tensors, got), 2 * np.prod(args[0].shape) * args[1].shape[1],
@@ -862,7 +919,7 @@ def landsat_split(dev, card):
 
     import qb3_tpu_torch as qt
     from qb3_tpu_torch import api
-    from qb3_tpu_torch.benchutil import (LANDSAT_SAMPLE, device_profile, host_seconds,
+    from qb3_tpu_torch.benchutil import (LANDSAT_SAMPLE, host_seconds,
                                          sustained)
     from qb3_tpu_torch.constants import HILBERT
     from qb3_tpu_torch.ops.decode import reconstruct
@@ -899,7 +956,7 @@ def landsat_split(dev, card):
         + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in t.items())
         + f"; the rest {(t_all - sum(t.values())) * 1e3:.4f} ms; kinds "
         f"{kind_counts(c['meta']['kind'])} ({card})")
-    p = device_profile(lambda: qt.decode(stream, device=dev))
+    p = profiled(lambda: qt.decode(stream, device=dev))
     kms = {k: sum(v for op, v in p["per_op"].items() if k in op)
            for k in ("gather_slabs_kernel", "wavefront_wide_kernel")}
     log(f"profile walk decode Landsat sample: wall {p['wall_ms']:.4f} ms, device busy "
@@ -963,7 +1020,7 @@ def k6_phase(dev, card, x):
     slabs as the yardstick and the kernel's device time from a profile."""
     import torch
 
-    from qb3_tpu_torch.benchutil import device_profile, median_ms
+    from qb3_tpu_torch.benchutil import median_ms
     from qb3_tpu_torch.constants import Mode
     from qb3_tpu_torch.ops.place_cuda import place_slabs, place_slabs_plain
     from qb3_tpu_torch.stitch import stitch_slabs
@@ -986,7 +1043,7 @@ def k6_phase(dev, card, x):
 
     compare("place_slabs", index_add(), got)
     lib = median_ms(index_add)
-    p = device_profile(lambda: place_slabs(slab, base, n_out))
+    p = profiled(lambda: place_slabs(slab, base, n_out))
     kernel_ms = sum(v for k, v in p["per_op"].items() if "place_slabs_kernel" in k)
     need = (nbytes(slab, base, got), slab.numel())
     bms, by = bound(need)
@@ -1010,7 +1067,7 @@ def strip_phase(dev, card, kernels, cases):
     import torch
 
     import qb3_tpu_torch as qt
-    from qb3_tpu_torch.benchutil import device_profile, host_seconds, sustained
+    from qb3_tpu_torch.benchutil import host_seconds, sustained
     from qb3_tpu_torch.ops.bitpack import words_to_bytes
     from qb3_tpu_torch.stitch import stitch_bytes, stitch_slabs, stitch_words_device
 
@@ -1090,7 +1147,7 @@ def strip_phase(dev, card, kernels, cases):
             f"{t_dev * 1e3:.4f} ms (device-resident {t_res * 1e3:.4f} ms, K6 alone "
             f"{t_k6 * 1e3:.4f} ms), host stitch (download every strip, stitch_bytes) "
             f"{t_host * 1e3:.4f} ms ({card})")
-        p = device_profile(lambda: stitch_words_device(parts, totals, n_out))
+        p = profiled(lambda: stitch_words_device(parts, totals, n_out))
         log(f"profile device-resident stitch {label}: wall {p['wall_ms']:.4f} ms, device busy "
             f"{p['busy_ms']:.4f} ms, idle {p['idle']:.3f}, {p['ops']:.0f} device ops, top "
             f"{p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
@@ -1162,7 +1219,7 @@ def walk_phase(dev, card, img, wide_imgs, kernels, ic_stream, ix_stream):
 
     import qb3_tpu_torch as qt
     from qb3_tpu_torch import api, container
-    from qb3_tpu_torch.benchutil import device_profile, host_seconds, sustained
+    from qb3_tpu_torch.benchutil import host_seconds, sustained
     from qb3_tpu_torch.constants import HILBERT, Mode
     from qb3_tpu_torch.ops.decode import decode_groups, reconstruct
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs
@@ -1231,7 +1288,7 @@ def walk_phase(dev, card, img, wide_imgs, kernels, ic_stream, ix_stream):
         h2h[k].append(host_seconds(lambda k=k: qt.decode(same[k], device=dev)))
     log("host-to-host decode u8 512x512x3, in turns: " + ", ".join(
         f"{k} {img.nbytes / 1e6 * 2 / sum(v):.2f} MB/s" for k, v in h2h.items()) + f" ({card})")
-    p = device_profile(lambda: qt.decode(same["walk"], device=dev))
+    p = profiled(lambda: qt.decode(same["walk"], device=dev))
     kms = {k: sum(v for op, v in p["per_op"].items() if k in op)
            for k in ("gather_slabs_kernel", "wavefront8_kernel")}
     log(f"profile walk decode u8 512x512x3: wall {p['wall_ms']:.4f} ms, device busy "
@@ -1252,8 +1309,8 @@ def main() -> int:
     import qb3_tpu_torch as qt
     from qb3_tpu_torch import _build, api, probes
     from qb3_tpu_torch.benchutil import (HEADLINE_SHA256, WIDE_IMAGES, WIDE_SHA256,
-                                         device_profile, headline_image, host_seconds,
-                                         sustained, wide_image)
+                                         headline_image, host_seconds, sustained,
+                                         wide_image)
     from qb3_tpu_torch.constants import HILBERT
     from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8
     from qb3_tpu_torch.ops.decode import decode_indexed_narrow, reconstruct, reconstruct_batch
@@ -1294,7 +1351,7 @@ def main() -> int:
     kres.update(ix_res)
     kres.update(k8_phase(dev, card))
     kres.update(k7_phase(dev, card, img, wide_image("u64 1024x1024x1")))
-    for name, err in k5_best_phase(dev, card).items():
+    for name, err in {**k5_best_phase(dev, card), **walk_edge_phase(dev, card)}.items():
         kres[name] = (max(err, kres[name][0]),) + kres[name][1:]
     scases = strip_cases()
     kres.update(k6_phase(dev, card, scases["u8 4096x4096x3 FTL"][0]))
@@ -1499,7 +1556,7 @@ def main() -> int:
             f"image-layout {mb / t_fus:.2f} MB/s ({t_fus * 1e3:.4f} ms; alone, phase A "
             f"{t_pa * 1e3:.4f} ms and K8 {t_k8 * 1e3:.4f} ms); equal outputs ({card})")
         for name, fn in paths.items():
-            p = device_profile(lambda fn=fn: fn(*enc))
+            p = profiled(lambda fn=fn: fn(*enc))
             pack = sum(v for k, v in p["per_op"].items()
                        if "pack_groups_kernel" in k or "encode_pack_image_kernel" in k)
             log(f"profile {name} encode {label}: wall {p['wall_ms']:.4f} ms, device busy "
@@ -1515,7 +1572,7 @@ def main() -> int:
 
     line = []
     for name in KERNELS:
-        # device ms (profiled: K1, K3, K6, K7, K8, P1-P7; K1 and K8 all they issue) and
+        # device ms (profiled: K1-K4, K6-K8, P1-P7; K1, K2, K4 and K8 all they issue) and
         # the library call's, else None
         err, ms, plain, need, lib, dev_ms, lib_dev = (*kres[name], None, None)[:7]
         bms, by = bound(need)

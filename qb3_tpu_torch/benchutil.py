@@ -112,6 +112,13 @@ def median_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+# the host-clock margin on either side of the profiled calls, and the
+# sentinel kernels launched first in every profile (device_profile)
+_PROFILE_PAD_S = 0.02
+_PROFILE_SENTINELS = 16
+_SENTINEL_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+
+
 def device_profile(fn, iters: int = 10) -> dict:
     """Where a call's device time goes: torch.profiler over ``iters`` calls
     after a warm-up.  Returns per call: wall_ms (host clock to a
@@ -119,37 +126,62 @@ def device_profile(fn, iters: int = 10) -> dict:
     the device's kernels and copies; on one stream they do not overlap),
     idle (1 - busy / wall, an upper bound), ops (device operations), the
     operation with the most device time (top, top_ms) and every operation's
-    device ms (per_op).  A profile that recorded no device activity, which
-    happens now and then to one of the many profiles a process takes on the
-    H100, is taken again, up to three times in all (attempts)."""
+    device ms (per_op).
+
+    On the H100 a profile loses device records.  Once a process is about a
+    minute old, the first few kernels of every profile (6 in a check of
+    torch 2.11, CUDA 12.8) leave no record; so each profile first launches
+    16 sentinel kernels (torch.cuda._sleep), waits for them and leaves them
+    out.  Now and then a profile also loses some or all of the rest, and
+    the profiler can date a record before its own launch; so the calls sit
+    20 ms inside the window on either side, and a profile that lacks a
+    device kernel for a recorded kernel launch is taken again, up to five
+    times in all (attempts).  If none is whole, the one with the most
+    kernels is kept and lost counts what it lacks; only five profiles
+    without a device record raise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _require_cuda()
     fn()
     torch.cuda.synchronize()
-    for attempts in range(1, 4):
+    best = None
+    for attempts in range(1, 6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(_PROFILE_SENTINELS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            time.sleep(_PROFILE_PAD_S)
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / iters
+            time.sleep(_PROFILE_PAD_S)
         per_name = {}
-        n = 0
+        n = kernels = 0
+        launches = -_PROFILE_SENTINELS
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
+                if _SENTINEL_KERNEL in e.name:
+                    continue
                 per_name[e.name] = (per_name.get(e.name, 0.0)
                                     + e.time_range.elapsed_us() / 1e3 / iters)
                 n += 1
-        if per_name:
+                kernels += not e.name.startswith(("Memset", "Memcpy"))
+            elif "LaunchKernel" in e.name:
+                launches += 1
+        if per_name and (best is None or kernels > best[2]):
+            best = (wall, per_name, kernels, n, max(launches - kernels, 0))
+        if per_name and kernels >= launches:
             break
-    else:
-        raise RuntimeError("three profiles recorded no device activity")
+    if best is None:
+        raise RuntimeError("five profiles recorded no device activity")
+    wall, per_name, _, n, lost = best
     busy = sum(per_name.values())
     top = max(per_name, key=per_name.get)
     return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, ops=n / iters, top=top,
-                top_ms=per_name[top], per_op=per_name, attempts=attempts)
+                top_ms=per_name[top], per_op=per_name, attempts=attempts, lost=lost)
 
 
 def host_seconds(fn, iters: int = 5) -> float:

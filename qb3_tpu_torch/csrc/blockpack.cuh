@@ -79,10 +79,11 @@ __host__ __device__ constexpr uint32_t region_bytes(uint32_t bytes) {
 }
 
 // Stage N spans: thread 0 issues one bulk copy for each aligned interior on
-// the block's mbarrier at bar, the threads copy the edges, and every
-// thread returns once all of it is in shared memory.
+// the block's mbarrier at bar and the threads copy the edges (stage_issue;
+// the caller waits on bar after a __syncthreads); stage also waits, and
+// returns in every thread once all of it is in shared memory.
 template <int N>
-__device__ inline void stage(const Span (&sp)[N], uint32_t bar) {
+__device__ inline void stage_issue(const Span (&sp)[N], uint32_t bar) {
   if (threadIdx.x == 0) {
     uint32_t total = 0;
 #pragma unroll
@@ -113,6 +114,11 @@ __device__ inline void stage(const Span (&sp)[N], uint32_t bar) {
         reinterpret_cast<uint32_t*>(sp[i].dst())[j] = reinterpret_cast<const uint32_t*>(sp[i].src)[j];
     }
   }
+}
+
+template <int N>
+__device__ inline void stage(const Span (&sp)[N], uint32_t bar) {
+  stage_issue(sp, bar);
   __syncthreads();  // the barrier's init and the edges, before any thread waits
   mbar_wait(bar, 0);
 }
@@ -163,29 +169,51 @@ __device__ __forceinline__ void store_relaxed64(uint64_t* p, uint64_t v) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// One warp of block vb: the sum of the published values of blocks first ..
-// vb - 1 (the earlier blocks of its tile), read 32 at a time back to the
-// nearest inclusive prefix.  Each lane waits on one earlier block, which
-// took its ticket before this one, so it runs or has run and publishes its
-// sum before it waits on anything.
-__device__ inline int64_t lookback(const uint64_t* state, int64_t vb, int64_t first) {
+// How look-back state values combine: K1 and K8 add bit counts.
+struct Sum {
+  __device__ static uint64_t combine(uint64_t a, uint64_t b) { return a + b; }
+};
+
+// One warp of block vb: the combination (Op, whose identity is 0) of the
+// published values of blocks first .. vb - 1 (the earlier blocks of its
+// tile), whose state words lie `stride` words apart, read 32 * U at a time
+// (U loads a lane in flight) back to the nearest inclusive prefix: a ballot
+// finds the prefix, a butterfly of shuffles combines the values up to it.
+// Each lane waits on earlier blocks, which took their tickets before this
+// one, so they run or have run and publish their values before they wait on
+// anything.  K4 (fusedwin.cu) combines packed band sums with its own Op.
+template <class Op = Sum, int U = 1>
+__device__ inline uint64_t lookback(const uint64_t* state, int64_t vb, int64_t first,
+                                    int64_t stride = 1) {
   const int lane = threadIdx.x & 31;
-  int64_t excl = 0;
-  for (int64_t base = vb - 1; base >= first; base -= 32) {
-    const int64_t j = base - lane;
-    uint64_t s = kPrefix;  // before the tile: a prefix of 0
-    if (j >= first) {
-      do {
-        s = load_relaxed64(state + j);
-      } while (!(s & (kAgg | kPrefix)));
-    }
-    const unsigned pm = __ballot_sync(0xffffffffu, (s & kPrefix) != 0);
-    const int stop = pm ? __ffs(pm) - 1 : 31;  // the nearest prefix
-    uint64_t v = lane <= stop ? (s & kValue) : 0;
+  uint64_t excl = 0;
+  for (int64_t base = vb - 1; base >= first; base -= 32 * U) {
+    uint64_t s[U];
 #pragma unroll
-    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    excl += static_cast<int64_t>(v);
-    if (pm) break;
+    for (int i = 0; i < U; ++i) {
+      const int64_t j = base - lane - 32 * i;
+      s[i] = j >= first ? load_relaxed64(state + j * stride) : kPrefix;  // before the tile: 0
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int64_t j = base - lane - 32 * i;
+      while (!(s[i] & (kAgg | kPrefix))) s[i] = load_relaxed64(state + j * stride);
+    }
+    uint64_t v = 0;
+    bool found = false;  // the same in every lane
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const unsigned pm = __ballot_sync(0xffffffffu, (s[i] & kPrefix) != 0);
+      if (!found) {
+        const int stop = pm ? __ffs(pm) - 1 : 31;  // the nearest prefix
+        v = Op::combine(v, lane <= stop ? (s[i] & kValue) : 0);
+        found = pm != 0;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) v = Op::combine(v, __shfl_xor_sync(0xffffffffu, v, o));
+    excl = Op::combine(excl, v);
+    if (found) break;
   }
   return excl;
 }

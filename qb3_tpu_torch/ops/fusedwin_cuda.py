@@ -23,12 +23,13 @@ from .pack_cuda import on_cpu, require, stream_ptr
 
 _K4 = _build.Kernel("qb3_wavefront_fused")
 
-FUSED_G = 128  # groups per K4 block (csrc/fusedwin.cu kThreads)
-FUSED_MAX_R = 8192  # staged words per block (32 KB of shared memory)
+FUSED_G = 128  # groups a K4 round, whose span it stages (csrc/fusedwin.cu kThreads)
+FUSED_MAX_R = 8192  # staged words a round (32 KB of shared memory)
+BANDS_PER_WORD = 10  # band sums a look-back state word holds (csrc/fusedwin.cu)
 
 
 def ix_window_R(goff: np.ndarray, nreg: int) -> int:
-    """Words K4 stages per block (host side): from each block's first group's
+    """Words K4 stages a round (host side): from each round's first group's
     base word, rounded down to 4, through the last word any of its groups'
     windows reads; capped at FUSED_MAX_R (words past the span are read from
     the stream, so R moves speed, never values)."""
@@ -57,13 +58,13 @@ def wavefront_fused(words32, goff, nreg: int, R: int, tbits: int,
     """K4: the fused "ix" walk.
 
     words32 (n32,) int32 stream words, 16-byte aligned; goff (ngroups,)
-    int32 group start bits; nreg window words per group; R staged words per
-    block (ix_window_R).  nbands given: parse the codeswitches and run the
-    band rung chain in the kernel, restarting every per_tile groups (0: one
-    stream) -> ((ngroups, B2) int64 mag-sign values, rung (ngroups,) int32).
-    nbands None: off (first value bit within the window), rung and kind
-    (ngroups,) int32 from the caller -> (ngroups, B2) int64.  apply_step
-    adds the BASE-mode step restore.
+    int32 group start bits; nreg window words per group; R staged words a
+    round of FUSED_G groups (ix_window_R).  nbands given: parse the
+    codeswitches and run the band rung chain in the kernel, restarting every
+    per_tile groups (0: one stream) -> ((ngroups, B2) int64 mag-sign values,
+    rung (ngroups,) int32).  nbands None: off (first value bit within the
+    window), rung and kind (ngroups,) int32 from the caller -> (ngroups, B2)
+    int64.  apply_step adds the BASE-mode step restore.
     """
     if on_cpu(words32):
         return wavefront_fused_plain(words32, goff, nreg, tbits, nbands, off, rung,
@@ -84,8 +85,10 @@ def wavefront_fused(words32, goff, nreg: int, R: int, tbits: int,
             raise ValueError(f"{ngroups} groups do not split into tiles of {per_tile} "
                              f"with {nbands} bands")
         rung_out = torch.empty(ngroups, dtype=torch.int32, device=dev)
-        scratch = torch.zeros(1 + -(-ngroups // FUSED_G) * nbands, dtype=torch.int32,
-                              device=dev)  # look-back ticket + per-block band sums
+        # the look-back's ticket and state words (at most a block a round),
+        # zeroed by the kernel's entry point
+        scratch = torch.empty(1 + -(-ngroups // FUSED_G) * -(-nbands // BANDS_PER_WORD),
+                              dtype=torch.int64, device=dev)
         ptrs = (null, null, null, out.data_ptr(), rung_out.data_ptr(), scratch.data_ptr())
     else:
         for x, n in ((off, "off"), (rung, "rung"), (kind, "kind")):

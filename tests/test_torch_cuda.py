@@ -43,7 +43,7 @@ from qb3_tpu_torch.stitch import stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 
-from . import pack_edges
+from . import pack_edges, walk_edges
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -265,6 +265,46 @@ def test_k4_garbage_matches_twin(cuda, tbits):
     goff = torch.from_numpy(goff).to(cuda)
     for nreg, R in ((4, 64), ({8: 8, 16: 12, 32: 20, 64: 36}[tbits], 1024)):
         _check_k4(words32, goff, nreg, R, tbits, 3, 105, True)
+
+
+@pytest.mark.parametrize("name", list(walk_edges.K4_CASES))
+def test_k4_edges_match_twin(cuda, name):
+    """K4's band scan and look-back (tiles that start inside a block, a tile
+    of 35 blocks, 1 to 256 bands), its span and stream reads (damaged
+    lengths, and a span of 64 words that most windows leave) and every
+    element width, both modes, on the inputs of tests/walk_edges.py,
+    tolerance zero; a call is one kernel and at most one memset."""
+    words32, glens, tbits, nb, nblocks, ntiles, tw32, step = walk_edges.k4_case(name)
+    nreg, R = _fused_ix_params(glens.reshape(ntiles, -1), tbits, tw32)
+    per_tile = nblocks * nb
+    g2 = glens.reshape(ntiles, per_tile).astype(np.int64)
+    goff = np.cumsum(g2, 1) - g2 + np.arange(ntiles)[:, None] * tw32 * 32
+    words32 = torch.from_numpy(words32).to(cuda)
+    goff = torch.from_numpy(goff.reshape(-1).astype(np.int32)).to(cuda)
+    for r in (R, 64):
+        _check_k4(words32, goff, nreg, r, tbits, nb, per_tile, step)
+    _one_launch(lambda: wavefront_fused(words32, goff, nreg, R, tbits, nbands=nb,
+                                        per_tile=per_tile), "fused_kernel")
+
+
+@pytest.mark.parametrize("name", list(walk_edges.K2_CASES))
+def test_k2_edges_match_twin(cuda, name):
+    """K2 on 1 to 256 bands, u8 and u16, a last tile of fewer than 128
+    chunks, and corrupt chunks that start past the stream or outside their
+    tile's window (tests/walk_edges.py), against its twin, tolerance zero;
+    a call is one kernel."""
+    words32, starts, entry, ubits, nb, k, step, maxw, R = walk_edges.k2_case(name)
+    words32, starts, entry = (torch.from_numpy(x).to(cuda) for x in (words32, starts, entry))
+    wrow = (starts[::128] >> 5) >> 7
+    win = pack_cuda.extract_windows(words32, wrow, R)
+    args = (words32, win, wrow, starts, entry, k, nb, step, ubits)
+    before = chunkwalk8.launches
+    got = chunkwalk8(*args)
+    torch.cuda.synchronize()
+    assert chunkwalk8.launches == before + 1
+    assert torch.equal(got, chunkwalk8_plain(*args))
+    ops = device_profile(lambda: chunkwalk8(*args), 5)["per_op"]
+    assert len(ops) == 1 and "chunkwalk" in next(iter(ops)), ops
 
 
 @pytest.mark.parametrize("tbits", [8, 16, 32, 64])

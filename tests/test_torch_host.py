@@ -158,3 +158,66 @@ def test_import_loads_no_jax():
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'qb3_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+class _FakeProfile:
+    """torch.profiler.profile's stand-in: each profile yields the next of
+    the given event lists, each event a (device type, name, us) tuple."""
+
+    def __init__(self, takes):
+        self.takes = iter(takes)
+
+    def __call__(self, activities):
+        from contextlib import nullcontext
+        from types import SimpleNamespace
+
+        evs = [SimpleNamespace(device_type=d, name=n,
+                               time_range=SimpleNamespace(elapsed_us=lambda us=us: us))
+               for d, n, us in next(self.takes)]
+        return nullcontext(SimpleNamespace(events=lambda: evs))
+
+
+@pytest.mark.parametrize("lost", [0, 1, 4, 5, "empty"])
+def test_device_profile_retakes_profiles_that_lost_records(lost, monkeypatch):
+    """A profile missing a device kernel for a recorded launch (all of them
+    lost, or part) is taken again, five times at most; the one kept gives
+    the per-call numbers: the first whole one, else the one with the most
+    kernels (lost counts what it lacks).  Five empty profiles raise.  The
+    sentinel kernels each profile launches first are left out, whether
+    their records came or not."""
+    import torch
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    from qb3_tpu_torch import benchutil
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    launch = (cpu, "cudaLaunchKernel", 1.0)
+    whole = [launch, launch, (cuda, "walk", 30.0), (cuda, "walk", 50.0),
+             (cuda, "Memset (Device)", 2.0), (cuda, "Memset (Device)", 2.0)]
+    part = [launch, launch, (cuda, "walk", 30.0), (cuda, "Memset (Device)", 2.0),
+            (cuda, "Memset (Device)", 2.0)]
+    if lost == "empty":
+        takes = [[launch, launch]] * 5
+    else:
+        takes = [[[launch, launch], part][i % 2] for i in range(lost)] + [whole] * (5 - lost)
+    sentinel = (cuda, "at::cuda::(anonymous namespace)::spin_kernel(long)", 9.0)
+    takes = [[launch] * benchutil._PROFILE_SENTINELS + [sentinel] * (i % 3 * 5) + t
+             for i, t in enumerate(takes)]
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile(takes))
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(benchutil, "_require_cuda", lambda: None)
+    monkeypatch.setattr(benchutil, "_PROFILE_PAD_S", 0.0)
+    if lost == "empty":
+        with pytest.raises(RuntimeError, match="five profiles recorded no device activity"):
+            benchutil.device_profile(lambda: None, 2)
+        return
+    p = benchutil.device_profile(lambda: None, 2)
+    assert p["attempts"] == min(lost + 1, 5)
+    if lost == 5:  # the partial profile, kept with what it lacks
+        assert p["lost"] == 1 and p["ops"] == 1.5
+        assert p["per_op"] == pytest.approx({"walk": 0.015, "Memset (Device)": 0.002})
+        return
+    assert p["lost"] == 0 and p["ops"] == 2 and p["top"] == "walk"
+    assert p["per_op"] == pytest.approx({"walk": 0.04, "Memset (Device)": 0.002})
