@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Phase times of K4 (the fused "ix" walk) and K2 (the "ic" chunk walk) on
-one CUDA card, from a copy of a checkout's qb3_tpu_torch with time stamps in
-the two kernels.
+"""Phase times of K4 (the fused "ix" walk), K2 (the "ic" chunk walk) and
+K5a / K5b (the walks on gathered windows) on one CUDA card, from a copy of
+a checkout's qb3_tpu_torch with time stamps in the kernels.
 
     python3 ab_phases_decode.py [--root DIR] [--label NAME] [--set NAME=VALUE ...]
-                                [--only k4|k2]
+                                [--only k4|k2|k5]
 
 Copies DIR's qb3_tpu_torch (default: this checkout's) into
 ab/phases-<label>/ (git-ignored), sets the named constants of
 csrc/fusedwin.cu there (for example --set kRounds=1 to time one round a
 block), and turns on the kernels' stamp points (QB3_STAMP in
-csrc/fusedwin.cu, QB3_PHASE in csrc/chunkwalk.cu, empty in the library); a
-checkout whose kernels have none (f6c4044) gets them at the same places.
-The copy builds its own kernels.
+csrc/fusedwin.cu, QB3_PHASE in csrc/chunkwalk.cu and csrc/wavefront.cu,
+empty in the library); a checkout whose kernels have none (f6c4044 for K4
+and K2, a14777a for K5) gets them at the same places.  The copy builds its
+own kernels.
 
 K4, parsing, at chip_smoke.py's "ix" shapes: thread 0 of every block
 records the card's %globaltimer at entry, after its ticket, after the
@@ -30,6 +31,14 @@ within it) and the store; printed are the median, 90th percentile and
 largest of each over the chunks, in us at the SM clock that the chunks'
 own cycles over their %globaltimer ns give.
 
+K5a / K5b at every launch shape of chip_smoke.py (the "ix" K5 branch, the
+best-mode kinds, the walks, the strip reads, the u8 scene's walk): every
+thread (one group) adds the SM cycles between its stamp points to its
+phases, as K2's do: staging (its off, rung and kind, and the block's
+window rows where the kernel stages them, or the first window words where
+it reads them directly), the walk (VLC and refills, the uniques and CF)
+and the store; printed as K2's.
+
 Each call's device ms comes from a profile, as chip_smoke.py's launch_times
 takes it; the stamps cost a few instructions a phase.
 """
@@ -46,6 +55,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 K4_PHASES = ("ticket", "stage", "parse", "scan", "look-back", "walk", "store")
 K2_PHASES = ("reads", "walk", "store")
+K5_PHASES = ("stage", "walk", "store")
 K4_SLOTS, K2_SLOTS = 8, 8  # stamp words a K4 block, a K2 chunk
 K4_MAX, K2_MAX = 1 << 17, 1 << 19  # blocks, chunks recorded
 
@@ -113,6 +123,21 @@ PARENT_K2 = [
     ("    if (apply_step && is_group) qb3::step_restore(vals, rung);\n", "    QB3_PHASE(1)\n"),
     ("    off += o - phase;\n  }\n", "  QB3_PHASE(2)\n  QB3_PHASE_END(c)\n"),
 ]
+# a14777a's K5a / K5b, which have no stamp points: (anchor, text put after
+# it, times the anchor occurs: once in each kernel where 2)
+PARENT_K5 = [
+    ("  if (g >= ngroups) return;\n", "  QB3_PHASE_BEGIN\n", 2),
+    ("  k += 2;\n",
+     "  QB3_PHASE_WAIT(static_cast<uint32_t>(acc) ^ static_cast<uint32_t>(kind))\n"
+     "  QB3_PHASE(0)\n"),
+    ("  const int rung = rung_in[g], kind = kind_in[g];\n",
+     "  QB3_PHASE_WAIT(rung ^ kind)\n  QB3_PHASE(0)\n"),
+    ("    take_uniques(vals, uq);\n  }\n", "  QB3_PHASE(1)\n", 2),
+    ("    dst[q] = make_uint4(vals[4 * q], vals[4 * q + 1], vals[4 * q + 2], vals[4 * q + 3]);\n",
+     "  QB3_PHASE(2)\n  QB3_PHASE_END(g)\n"),
+    ("  for (int q = 0; q < 8; ++q) dst[q] = make_ulonglong2(vals[2 * q], vals[2 * q + 1]);\n",
+     "  QB3_PHASE(2)\n  QB3_PHASE_END(g)\n"),
+]
 
 
 def instrument(src_root: str, dst: str, settings=()):
@@ -123,7 +148,8 @@ def instrument(src_root: str, dst: str, settings=()):
                     ignore=shutil.ignore_patterns("__pycache__"))
     csrc = os.path.join(dst, "qb3_tpu_torch", "csrc")
     for name, tag, defs, parent, mark in (("fusedwin.cu", "k4", K4_DEFS, PARENT_K4, "QB3_STAMP"),
-                                          ("chunkwalk.cu", "k2", K2_DEFS, PARENT_K2,
+                                          ("chunkwalk.cu", "k2", K2_DEFS, PARENT_K2, "QB3_PHASE"),
+                                          ("wavefront.cu", "k5", K2_DEFS, PARENT_K5,
                                            "QB3_PHASE")):
         path = os.path.join(csrc, name)
         src = open(path).read()
@@ -134,9 +160,9 @@ def instrument(src_root: str, dst: str, settings=()):
             if n != 1:
                 raise SystemExit(f"no constant {key} in csrc/fusedwin.cu")
         if mark not in src:
-            for anchor, text in parent:
-                if src.count(anchor) != 1:
-                    raise SystemExit(f"{name}: no single '{anchor.strip()}' to stamp")
+            for anchor, text, *times in parent:
+                if src.count(anchor) != (times or [1])[0]:
+                    raise SystemExit(f"{name}: '{anchor.strip()}' is not where it was")
                 src = src.replace(anchor, anchor + text)
         head = src.index("#include")
         src = src[:head] + "#include <cstdint>\n" + defs + src[head:] + f"""
@@ -161,7 +187,7 @@ def main() -> int:
     p.add_argument("--root", default=HERE, help="the checkout whose kernels are stamped")
     p.add_argument("--label", default="base", help="a name for the copy and the output")
     p.add_argument("--set", action="append", default=[], help="NAME=VALUE of csrc/fusedwin.cu")
-    p.add_argument("--only", choices=("k4", "k2"), help="time one kernel")
+    p.add_argument("--only", choices=("k4", "k2", "k5"), help="time one kernel")
     args = p.parse_args()
     import ctypes
 
@@ -184,7 +210,7 @@ def main() -> int:
     spec.loader.exec_module(smoke)
     lib = _build.load()
     read = {}
-    for tag in ("k4", "k2"):
+    for tag in ("k4", "k2", "k5"):
         fn = getattr(lib, f"qb3_stamps_{tag}")
         fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int64], ctypes.c_int
         read[tag] = fn
@@ -207,7 +233,7 @@ def main() -> int:
         s = raw.reshape(n, slots).astype(np.int64)
         return t, s[s[:, 1] != 0] if tag == "k4" else s
 
-    for label, x in smoke.ix_cases().items() if args.only != "k2" else ():
+    for label, x in smoke.ix_cases().items() if args.only in (None, "k4") else ():
         a = smoke.ix_inputs(batch.encode_tiles(x, index=True, device=dev), dev)
         nblocks = min(-(-a["goff"].numel() // 128), K4_MAX)
         fn = lambda a=a: wavefront_fused(a["words32"], a["goff"], a["nreg"], a["R"], a["tbits"],
@@ -229,7 +255,8 @@ def main() -> int:
     img = headline_image()
     tiles = np.stack([headline_image(seed=100 + i) for i in range(smoke.BATCH)])
     u16 = headline_image(1024, 1024, 1, seed=7, dtype=np.uint16)
-    for label, streams, ubits in smoke.k3_cases(img, tiles, u16, dev) if args.only != "k4" else ():
+    k2_cases = smoke.k3_cases(img, tiles, u16, dev) if args.only in (None, "k2") else ()
+    for label, streams, ubits in k2_cases:
         a = smoke.walk_inputs(streams, dev)
         win = extract_windows(a["words32"], a["wrow"], a["R"])
         nchunks = min(a["starts"].numel(), K2_MAX)
@@ -243,6 +270,27 @@ def main() -> int:
               + "; ".join(f"{n} {stats(us[:, i])}" for i, n in enumerate(K2_PHASES))
               + f"; all {stats(us[:, 3])}", flush=True)
         del a, win
+
+    def k5_shapes():
+        for label, x in smoke.ix_cases().items():
+            yield f"ix {label}", smoke.k5_ix_case(batch.encode_tiles(x, index=True, device=dev),
+                                                  dev)
+        for label, case, _ in smoke.k5_decode_cases(dev):
+            yield label, case
+
+    for label, case in k5_shapes() if args.only in (None, "k5") else ():
+        name, kern, _ = smoke.k5_kernel(case["tbits"])
+        kargs = smoke.k5_args(case)
+        ng = case["kind"].numel()
+        t, s = stamps("k5", min(ng, K2_MAX), K2_SLOTS, lambda kargs=kargs: kern(*kargs))
+        ghz = np.median(s[:, 3] / np.maximum(s[:, 4], 1))
+        us = s[:, :4] / ghz / 1e3
+        print(f"{args.label} {name} {label}: device {t['busy_ms']:.4f} ms a call in "
+              f"{t['ops']:g} ops; {ng} groups, nreg {case['nreg']}, {s.shape[0]} stamped, SM "
+              f"clock {ghz:.3f} GHz; group us median / p90 / max: "
+              + "; ".join(f"{n} {stats(us[:, i])}" for i, n in enumerate(K5_PHASES))
+              + f"; all {stats(us[:, 3])}", flush=True)
+        del case, kargs
     return 0
 
 

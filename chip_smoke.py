@@ -26,19 +26,22 @@ printed on earlier lines:
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
      + pack) at the wide shapes, FTL and BASE, then K7 (window gather) at
      the walk's u8 512x512x3 and u64 1024x1024x1 windows, then (3d) K5a and
-     K5b on best-mode kinds (CF, CF0, IDX): the Landsat sample's groups, a
-     damaged 512x512x3 BASE_H stream whose walk meets best-mode codes, and
-     u32 / u64 random windows over every kind, with kind counts, then (3e)
+     K5b at every other launch shape: best-mode kinds (CF, CF0, IDX; the
+     Landsat sample's groups, a damaged 512x512x3 BASE_H stream whose walk
+     meets best-mode codes, u32 / u64 random windows over every kind, with
+     kind counts), the seven walk decodes of phase 5, a StripDecoder read
+     of each strip scene and the walk of the whole u8 scene, then on the
+     edge inputs of tests/k5_edges.py, then (3e)
      K6 (slab placement) at the slabs of the u8 4096x4096x3 strip encode's
      stitch, then (3f) P1-P7 at their probes' shapes, then (3g) K4 and K2
      on the edge inputs of tests/walk_edges.py, each against its
      plain PyTorch twin (exact equality) and, for the probes, the probe's
      own check; median times, twin times, bounds and a one-call yardstick
      (K3 and K7 at every shape also with their device ms and host enqueue
-     us beside torch.take's; K1, K8, K4 and K2 at every shape with the
+     us beside torch.take's; K1, K8, K4, K2 and K5 at every shape with the
      device ms and the device operations of a call from a profile, which
-     must be the kernel and at most one memset, for K2 the kernel alone;
-     each probe beside its one-call copy's device ms);
+     must be the kernel and at most one memset, for K2 and K5 the kernel
+     alone; each probe beside its one-call copy's device ms);
   4. golden bytes: the committed web fixtures (streams pinned to the C
      reference) all decoded to their raw bytes, the best-mode ones
      included, and re-encoded by the port where not best mode, the headline
@@ -69,7 +72,8 @@ printed on earlier lines:
      `python -m qb3_tpu_torch.probes` (an OK line per probe).
 
 Launch counts are set to 0 just before each main path and read just after;
-each kernel's count in the result is from the path that runs it.  Any
+each kernel's count in the result is from the path that runs it, summed
+over the "ix", walk and strip paths for K5a, K5b and K7.  Any
 failure exits non-zero and prints no result.  The line before the last is
 {"kernels": [...]} (each kernel's error, median ms, twin ms, bound ms, and
 a one-call PyTorch yardstick where one exists; device ms where a profile
@@ -466,14 +470,9 @@ def ix_inputs(streams, dev):
 def ix_kernel_phase(dev, card, cases):
     """Phase 3b: K4 (both modes), K5a and K5b against their twins at the
     "ix" shapes.  Returns (per-kernel results, {label: streams})."""
-    import torch
-
     from qb3_tpu_torch import batch
     from qb3_tpu_torch.benchutil import median_ms
-    from qb3_tpu_torch.ops.decode import ix_parse, ix_regs
     from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
-    from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain,
-                                                  wavefront_wide, wavefront_wide_plain)
 
     results, all_streams = {}, {}
     for label, tiles in cases.items():
@@ -495,34 +494,19 @@ def ix_kernel_phase(dev, card, cases):
         bms, by = bound(need4)
         log(f"K4 wavefront_fused {label}: {pack_times_text(t4)}; bound {bms:.5f} ms by {by} "
             f"({card})")
-        regs = ix_regs(a["words32"], a["goff"], nreg)
-        off, rung, kind = (x.to(torch.int32) for x in
-                           ix_parse(regs, a["goff"], tb, a["nb"], a["per_tile"]))
-        given = dict(off=off, rung=rung, kind=kind)
+        case = k5_ix_case(streams, dev)
+        given = {k: case[k] for k in ("off", "rung", "kind")}
         err4 = max(err4, compare("wavefront_fused", wavefront_fused(*k4, **given),
                                  wavefront_fused_plain(*k4[:3], tb, **given)))
         log(f"K4 wavefront_fused {label} groups {a['goff'].shape[0]} nreg {nreg} R {a['R']}: "
             f"equal in both modes, kernel {ms4:.4f} ms, twin {plain4:.4f} ms")
-        k5 = (regs[:, :nreg].to(torch.int32).contiguous(), off, rung, kind, nreg)
-        if tb == 8:
-            name, kern, plain = "wavefront8", wavefront8, wavefront8_plain
-        else:
-            name = "wavefront_wide"
-            k5 = k5 + (tb,)
-            kern, plain = wavefront_wide, wavefront_wide_plain
-        walked5 = kern(*k5)
-        err5 = compare(name, walked5, plain(*k5))
-        need5 = (nbytes(k5[0]) + ng * (2 + 1 + 1 + 16 * tb // 8), walk_ops(walked5, tb))
-        ms5 = median_ms(lambda: kern(*k5))
-        plain5 = median_ms(lambda: plain(*k5), 3)
-        log(f"K5 {name} {label}: equal, kernel {ms5:.4f} ms, twin {plain5:.4f} ms")
+        name, res5 = k5_time(f"ix {label}", case, card)
         for kname, res in (("wavefront_fused", (err4, ms4, plain4, need4, None,
-                                                t4["busy_ms"], None)),
-                           (name, (err5, ms5, plain5, need5, None))):
+                                                t4["busy_ms"], None)), (name, res5)):
             if kname in results:  # keep the first shape's times, the worst error
                 res = (max(res[0], results[kname][0]),) + results[kname][1:]
             results[kname] = res
-        del regs, k5, given, walked, walked5
+        del case, given, walked
     return results, all_streams
 
 
@@ -659,22 +643,109 @@ def kind_counts(kind) -> dict:
     return {n: int(c) for n, c in zip(names, counts)}
 
 
-def k5_need(walked, a, tbits):
-    """(bytes, integer operations) K5 needs on these groups: the windows, the
-    per-group off, rung, kind and cf read once and the values written once;
-    16 decodes a coded group (walk_ops), a decode per IDX group's unique
-    (its distinct values), and the CF multiply-back (3 a value) or CF0
-    expansion (1 a value)."""
+def k5_kernel(tbits: int):
+    """(name, wrapper, twin) of K5a (u8) or K5b (u16 / u32 / u64)."""
+    from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain,
+                                                  wavefront_wide, wavefront_wide_plain)
+
+    if tbits == 8:
+        return "wavefront8", wavefront8, wavefront8_plain
+    return "wavefront_wide", wavefront_wide, wavefront_wide_plain
+
+
+def k5_args(case: dict) -> tuple:
+    """A K5 case's arguments: regs, off, rung, kind, nreg, tbits for K5b, cf."""
+    wide_ = (case["tbits"],) if case["tbits"] > 8 else ()
+    return (case["regs"], case["off"], case["rung"], case["kind"], case["nreg"], *wide_,
+            case["cf"])
+
+
+def k5_ix_case(streams, dev) -> dict:
+    """K5's inputs on the K5 branch of the "ix" decode (decode_indexed_narrow
+    without K4's span) of one stream or a same-shape batch: the windows
+    gathered by indexing, at the sidecar's narrowed nreg, and the parse."""
     import torch
 
-    ng, tb = a["kind"].numel(), tbits
+    from qb3_tpu_torch.ops.decode import ix_parse, ix_regs
+
+    a = ix_inputs(streams, dev)
+    regs = ix_regs(a["words32"], a["goff"], a["nreg"])
+    off, rung, kind = (x.to(torch.int32) for x in
+                       ix_parse(regs, a["goff"], a["tbits"], a["nb"], a["per_tile"]))
+    return dict(regs=regs[:, :a["nreg"]].to(torch.int32).contiguous(), off=off, rung=rung,
+                kind=kind, nreg=a["nreg"], tbits=a["tbits"], cf=None)
+
+
+def k5_walk_case(inp: dict, tbits: int) -> dict:
+    """K5's inputs in decode_groups (a walk or an "ib" sidecar): the windows
+    K7 gathers from decode_groups' arguments inp."""
+    from qb3_tpu_torch.ops.gather_cuda import gather_slabs
+
+    return dict(regs=gather_slabs(inp["words32"], inp["base"], inp["nreg"], inp["R"]),
+                off=inp["off"], rung=inp["rung"], kind=inp["kind"], nreg=inp["nreg"],
+                tbits=tbits, cf=inp["cf"])
+
+
+def strip_read_case(stream, dev) -> dict:
+    """K5's inputs of a StripDecoder's first STRIP_ROWS-row read of stream:
+    decode_groups' arguments as strip.py passes them, caught on the way."""
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import strip
+
+    seen, real = [], strip.decode_groups
+
+    def catch(words32, **kw):
+        seen.append(dict(kw, words32=words32))
+        return real(words32, **kw)
+
+    strip.decode_groups = catch
+    try:
+        qt.StripDecoder(stream, strip_rows=STRIP_ROWS, device=dev).read(STRIP_ROWS)
+    finally:
+        strip.decode_groups = real
+    return k5_walk_case(seen[0], seen[0]["tbits"])
+
+
+def k5_need(walked, case: dict):
+    """(bytes, integer operations) K5 needs on a case: the windows, the
+    per-group off, rung, kind (and cf where given) read once and the values
+    written once at the type's width; 16 decodes a coded group (walk_ops),
+    a decode per IDX group's unique (its distinct values), and the CF
+    multiply-back (3 a value) or CF0 expansion (1 a value)."""
+    import torch
+
+    kind, tb = case["kind"], case["tbits"]
+    ng = kind.numel()
     vals = walked.reshape(-1, 16).to(torch.int64)
-    idx = a["kind"] == 5
+    idx = kind == 5
     srt = vals[idx].sort(-1).values
     uniques = int(idx.sum()) + int((srt[:, 1:] != srt[:, :-1]).sum())
     ops = (walk_ops(walked, tb) + uniques * DECODE_OPS * wide(tb)
-           + 16 * (3 * int((a["kind"] == 3).sum()) + int((a["kind"] == 4).sum())))
-    return (4 * ng * a["nreg"] + ng * (2 + 1 + 1 + 8) + ng * 16 * tb // 8, ops)
+           + 16 * (3 * int((kind == 3).sum()) + int((kind == 4).sum())))
+    cf_bytes = 0 if case["cf"] is None else 8
+    return (nbytes(case["regs"]) + ng * (2 + 1 + 1 + cf_bytes) + ng * 16 * tb // 8, ops)
+
+
+def k5_time(label: str, case: dict, card: str, note: str = "") -> tuple:
+    """K5a or K5b on one case: equal to its twin (tolerance zero), one
+    kernel a call and nothing else, its times (launch_times: median, device
+    ms, ops a call, enqueue us), the twin's and the bound, logged ->
+    (name, the kernels line's entry)."""
+    from qb3_tpu_torch.benchutil import median_ms
+
+    name, kern, plain = k5_kernel(case["tbits"])
+    args = k5_args(case)
+    got = kern(*args)
+    err = compare(f"{name} {label}", got, plain(*args))
+    t = launch_times(lambda: kern(*args), f"{name}_kernel")
+    check_one_launch(f"K5 {name} {label}", t, f"{name}_kernel", memset=False)
+    plain_ms = median_ms(lambda: plain(*args), 3)
+    need = k5_need(got, case)
+    bms, by = bound(need)
+    log(f"K5 {name} {label}, {case['kind'].numel()} groups, nreg {case['nreg']}{note}: equal; "
+        f"{pack_times_text(t)}; twin {plain_ms:.4f} ms; bound {bms:.5f} ms by {by} "
+        f"({need[0]} bytes, {need[1]} integer operations) ({card})")
+    return name, (err, t["ms"], plain_ms, need, None, t["busy_ms"], None)
 
 
 def k7_phase(dev, card, img, u64):
@@ -707,29 +778,31 @@ def k7_phase(dev, card, img, u64):
     return {"gather_slabs": res}
 
 
-def k5_best_phase(dev, card):
-    """Phase 3d, best modes: K5a and K5b against their twins on best-mode
-    kinds, tolerance zero: K5b u16 on the Landsat sample's walk groups, K5a
-    u8 on the groups of a damaged 512x512x3 BASE_H stream (one bit flipped
-    where the walk meets CF, CF0 or IDX groups), K5b u32 / u64 on seeded
-    random windows with every kind, rung and cf in the domain.  Returns
-    {kernel: max abs err} and prints each case's kind counts, times and
-    bound."""
+def k5_decode_cases(dev):
+    """K5's launch shapes on the decodes that gather windows with K7, one at
+    a time: (label, case, the walk's kinds or None).  Best-mode kinds: the
+    Landsat sample's walk groups (u16), the groups of a damaged 512x512x3
+    BASE_H stream (one bit flipped where the walk meets CF, CF0 or IDX
+    groups; u8), seeded random u32 / u64 windows with every kind, rung and
+    cf in the domain; the seven walk decodes of phase 5 (the default
+    encode's streams: u8 512x512x3 FTL, BASE_Z and RLE_H with a no-data
+    rectangle, the four wide images in FTL); a StripDecoder read of each
+    strip scene (u8 4096x4096x3 FTL without a sidecar, u16 4096x4096x1
+    BASE_H with "ix", which strip reads walk as well); and the walk of the
+    whole u8 scene."""
     import torch
 
+    import qb3_tpu_torch as qt
     from qb3_tpu_torch import api
-    from qb3_tpu_torch.benchutil import (LANDSAT_SAMPLE, headline_image,
-                                         median_ms)
+    from qb3_tpu_torch.benchutil import (LANDSAT_SAMPLE, WIDE_IMAGES, headline_image,
+                                         wide_image)
     from qb3_tpu_torch.constants import Mode
-    from qb3_tpu_torch.ops.gather_cuda import gather_slabs
-    from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain,
-                                                  wavefront_wide, wavefront_wide_plain)
 
-    cases = {}
     with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
         c = stream_walk(f.read(), dev)
-    cases["u16 Landsat sample 512x512x8 CF_H"] = (c["inp"], c["meta"]["kind"], 16)
-    stream = api.encode(headline_image(), mode=Mode.BASE_H, device=dev)
+    yield "u16 Landsat sample 512x512x8 CF_H", k5_walk_case(c["inp"], 16), c["meta"]["kind"]
+    img = headline_image()
+    stream = api.encode(img, mode=Mode.BASE_H, device=dev)
     info = api.container.parse_headers(stream)
     n = len(stream) - info.data_offset
     for pct in range(50, 100):  # the first flip from the middle on whose walk meets them
@@ -739,8 +812,8 @@ def k5_best_phase(dev, card):
             break
     check((np.asarray(c["meta"]["kind"]) > 2).any(), "no flip of the BASE_H stream met "
           "best-mode groups")
-    cases[f"u8 512x512x3 BASE_H, bit {at * 8} flipped ({pct}%)"] = (
-        c["inp"], c["meta"]["kind"], 8)
+    yield (f"u8 512x512x3 BASE_H, bit {at * 8} flipped ({pct}%)", k5_walk_case(c["inp"], 8),
+           c["meta"]["kind"])
     for tb, nreg in ((32, 20), (64, 36)):
         rng = np.random.default_rng(tb)
         ng = 65536
@@ -754,28 +827,58 @@ def k5_best_phase(dev, card):
                    nreg=nreg, R=api.gather_span(base, nreg),
                    cf=torch.from_numpy(rng.integers(0, 1 << 64, ng, dtype=np.uint64)
                                        .view(np.int64)).to(dev))
-        cases[f"u{tb} random windows, {ng} groups"] = (inp, kind, tb)
+        yield f"u{tb} random windows", k5_walk_case(inp, tb), kind
+    nodata = img.copy()
+    nodata[64:320, 96:448] = 0  # as walk_phase's
+    walks = {"u8 512x512x3 FTL": (img, Mode.FTL), "u8 512x512x3 BASE_Z": (img, Mode.BASE_Z),
+             "u8 512x512x3 no-data RLE_H": (nodata, Mode.RLE_H),
+             **{label: (wide_image(label), Mode.FTL) for label in WIDE_IMAGES}}
+    for label, (x, mode) in walks.items():
+        c = stream_walk(qt.encode(x, mode=mode, device=dev), dev)
+        yield f"walk {label}", k5_walk_case(c["inp"], 8 * x.itemsize), None
+    for label, (x, mode, indexes) in strip_cases().items():
+        s = qt.encode(x, mode=mode, index=indexes[0], device=dev)
+        side = {False: "no sidecar", True: "ix"}.get(indexes[0], indexes[0])
+        yield (f"strip read {label} {side}, {STRIP_ROWS} rows",
+               strip_read_case(s, dev), None)
+        if x.itemsize == 1:
+            c = stream_walk(s, dev)
+            yield f"walk {label} scene", k5_walk_case(c["inp"], 8), None
+        del s
+
+
+def k5_edge_cases(dev):
+    """The edge inputs of tests/k5_edges.py on the card: (name, case)."""
+    import torch
+
+    from tests import k5_edges
+
+    for name in k5_edges.CASES:
+        regs, off, rung, kind, nreg, tbits, cf = k5_edges.k5_case(name)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in
+             dict(regs=regs, off=off, rung=rung, kind=kind).items()}
+        yield name, dict(t, nreg=nreg, tbits=tbits,
+                         cf=None if cf is None else torch.from_numpy(cf).to(dev))
+
+
+def k5_phase(dev, card) -> dict:
+    """Phase 3d: K5a and K5b at every launch shape of the decodes that
+    gather windows (k5_decode_cases), each against its twin with its times
+    and bound (k5_time), then on the edge inputs of tests/k5_edges.py
+    against the twins, tolerance zero.  Returns {kernel: max abs err}."""
     errs = {}
-    for label, (a, kind, tb) in cases.items():
-        regs = gather_slabs(a["words32"], a["base"], a["nreg"], a["R"])
-        args = (regs, a["off"], a["rung"], a["kind"], a["nreg"])
-        if tb == 8:
-            name, kern, plain = "wavefront8", wavefront8, wavefront8_plain
-        else:
-            name, kern, plain = "wavefront_wide", wavefront_wide, wavefront_wide_plain
-            args = args + (tb,)
-        got = kern(*args, a["cf"])
-        errs[name] = max(errs.get(name, 0), compare(name, got, plain(*args, a["cf"])))
-        ms = median_ms(lambda: kern(*args, a["cf"]))
-        plain_ms = median_ms(lambda: plain(*args, a["cf"]), 3)
-        p = profiled(lambda: kern(*args, a["cf"]))
-        dev_ms = sum(v for op, v in p["per_op"].items() if f"{name}_kernel" in op)
-        need = k5_need(got, a, tb)
-        bms, by = bound(need)
-        log(f"K5 {name} best kinds, {label}: kinds {kind_counts(kind)}; equal, kernel "
-            f"{ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.4f} ms, bound {bms:.5f} ms "
-            f"by {by} ({need[0]} bytes, {need[1]} integer operations) ({card})")
-        del regs, got
+    for label, case, kind in k5_decode_cases(dev):
+        note = "" if kind is None else f", kinds {kind_counts(kind)}"
+        name, res = k5_time(label, case, card, note)
+        errs[name] = max(errs.get(name, 0), res[0])
+        del case
+    for label, case in k5_edge_cases(dev):
+        name, kern, plain = k5_kernel(case["tbits"])
+        args = k5_args(case)
+        errs[name] = max(errs.get(name, 0), compare(f"{name} edge {label}", kern(*args),
+                                                    plain(*args)))
+        log(f"K5 {name} edge {label}: {case['kind'].numel()} groups, nreg {case['nreg']}, "
+            f"cf {'given' if case['cf'] is not None else 'none'}: equal")
     return errs
 
 
@@ -1351,7 +1454,7 @@ def main() -> int:
     kres.update(ix_res)
     kres.update(k8_phase(dev, card))
     kres.update(k7_phase(dev, card, img, wide_image("u64 1024x1024x1")))
-    for name, err in {**k5_best_phase(dev, card), **walk_edge_phase(dev, card)}.items():
+    for name, err in {**k5_phase(dev, card), **walk_edge_phase(dev, card)}.items():
         kres[name] = (max(err, kres[name][0]),) + kres[name][1:]
     scases = strip_cases()
     kres.update(k6_phase(dev, card, scases["u8 4096x4096x3 FTL"][0]))
@@ -1564,9 +1667,11 @@ def main() -> int:
                 f"{p['ops']:.0f} device ops, top {p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
         del xd, block, image, args
 
-    launches["gather_slabs"] = walk_phase(dev, card, img, wide_imgs, kernels, stream,
-                                          ix_streams["u8 512x512x3"][0])["gather_slabs"]
-    launches["place_slabs"] = strip_phase(dev, card, kernels, scases)["place_slabs"]
+    walked = walk_phase(dev, card, img, wide_imgs, kernels, stream, ix_streams["u8 512x512x3"][0])
+    stripped = strip_phase(dev, card, kernels, scases)
+    for k in ("gather_slabs", "wavefront8", "wavefront_wide"):  # K5 also ran on the ix path
+        launches[k] = launches.get(k, 0) + walked[k] + stripped[k]
+    launches["place_slabs"] = stripped["place_slabs"]
     landsat_split(dev, card)
     launches.update(probe_main_path(kernels))
 

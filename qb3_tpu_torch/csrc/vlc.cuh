@@ -16,8 +16,11 @@ namespace qb3 {
 // Group-context VLC decode at `rung` (1..31) from the low stream bits `w`:
 // the base 3-range code plus the middle swap of the tabled rungs (rung 1:
 // 1<->2, rung 2: 3<->4, rungs 3..7: 2^r-1 <-> 2^r; QB3decode.h:21-23).
-// Rung 0 is clamped to 1, as the callers mask rung-0 groups anyway.
-__device__ __forceinline__ uint32_t vlc_group32(uint32_t w, int rung, int* len) {
+// Rung 0 is clamped to 1, as the callers mask rung-0 groups anyway.  With
+// swap false it is the plain code (_vlc_decode_plain), as index codes are
+// read at rung 2.
+__device__ __forceinline__ uint32_t vlc_group32(uint32_t w, int rung, int* len,
+                                                bool swap = true) {
   const int r = rung < 1 ? 1 : rung;
   const uint32_t rbit = 1u << r;
   const uint32_t vmask = rbit - 1;
@@ -26,7 +29,7 @@ __device__ __forceinline__ uint32_t vlc_group32(uint32_t w, int rung, int* len) 
   const uint32_t v2 = (w >> 2) & vmask;
   uint32_t v = shrt ? (w & vmask) >> 1 : (n == 0 ? v2 | (rbit >> 1) : v2 | rbit);
   *len = shrt ? r : r + 1 + static_cast<int>(n);
-  if (r <= 7) {
+  if (swap && r <= 7) {
     const uint32_t a = r == 1 ? 1u : (r == 2 ? 3u : rbit - 1);
     v = v == a ? a + 1 : (v == a + 1 ? a : v);
   }
@@ -37,8 +40,9 @@ __device__ __forceinline__ uint32_t vlc_group32(uint32_t w, int rung, int* len) 
 // `w`, the counterpart of _vlc64 (wavefront_pallas.py) on a native word.
 // Sets *len up to 65: the rung-63 long form's 65th bit (value bit 62) lies
 // past the window, and the caller ORs it in.  The middle swap applies to the
-// tabled rungs only, and only where the value fits 32 bits (vhi == 0).
-__device__ __forceinline__ uint64_t vlc64(uint64_t w, int rung, int* len) {
+// tabled rungs only, and only where the value fits 32 bits (vhi == 0); with
+// swap false it is vlc_plain64.
+__device__ __forceinline__ uint64_t vlc64(uint64_t w, int rung, int* len, bool swap = true) {
   const int r = rung < 1 ? 1 : rung;
   const uint64_t rbit = 1ull << r;
   const uint64_t vmask = rbit - 1;
@@ -46,7 +50,7 @@ __device__ __forceinline__ uint64_t vlc64(uint64_t w, int rung, int* len) {
   const int n = static_cast<int>((w >> 1) & 1ull);
   uint64_t v = shrt ? (w & vmask) >> 1 : ((w >> 2) & vmask) | (n ? rbit : rbit >> 1);
   *len = shrt ? r : r + 1 + n;
-  if (r <= 7 && (v >> 32) == 0) {
+  if (swap && r <= 7 && (v >> 32) == 0) {
     const uint64_t a = r == 1 ? 1ull : (r == 2 ? 3ull : rbit - 1);
     v = v == a ? a + 1 : (v == a + 1 ? a : v);
   }

@@ -12,7 +12,8 @@ single-value context).  A wrapper takes its twin for a CPU tensor and
 launches csrc/wavefront.cu for a CUDA tensor; there is no fallback from one
 to the other.  On kinds 0-2 both follow the TPU kernels on any input in
 their domain: off in [0, 64), rung below the type's bit width; window
-words past NREG read as zero.
+words past NREG read as zero.  A kernel block stages its groups' windows in
+shared memory, so the kernels take nreg up to K5_MAX_NREG.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ _K5A = _build.Kernel("qb3_wavefront8")
 _K5B = _build.Kernel("qb3_wavefront_wide")
 
 KIND_GROUP, KIND_BITS, KIND_CF, KIND_CF0, KIND_IDX = 1, 2, 3, 4, 5  # K5's codes
+K5_MAX_NREG = 384  # window words a group on the card (csrc/wavefront.cu kMaxNreg)
 
 
 def _walk_plain(regs_arr, off, rung, kind, cf, nreg: int, tbits: int):
@@ -140,6 +142,8 @@ def _launch(kernel, regs_arr, off, rung, kind, cf, nreg, out, *extra):
             raise ValueError(f"{n}: {x.shape[0]} groups, regs_arr has {regs_arr.shape[0]}")
     if regs_arr.shape[1] != nreg:
         raise ValueError(f"regs_arr has {regs_arr.shape[1]} words per group, nreg={nreg}")
+    if not 1 <= nreg <= K5_MAX_NREG:
+        raise ValueError(f"nreg {nreg}: the kernels take 1 to {K5_MAX_NREG} words per group")
     kernel(regs_arr.data_ptr(), regs_arr.shape[0], nreg, *extra, off.data_ptr(),
            rung.data_ptr(), kind.data_ptr(), None if cf is None else cf.data_ptr(),
            out.data_ptr(), stream_ptr(dev))

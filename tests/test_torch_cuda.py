@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (pack), K2 (chunk walk), K3 (window copy), K4 (fused
 "ix" walk), K5a / K5b (walks on gathered windows, the best modes' CF, CF0
-and IDX groups included), K6 (slab placement), K7 (window gather), K8
-(fused image-layout VLC + pack) and P1-P7 (the Mosaic probes) of
+and IDX groups and the edge inputs of tests/k5_edges.py included), K6
+(slab placement), K7 (window gather), K8 (fused image-layout VLC + pack)
+and P1-P7 (the Mosaic probes) of
 qb3_tpu_torch against their plain PyTorch twins, and the public decode
 (best-mode streams included) and the strips on the card against the
 CPU's.
@@ -43,7 +44,7 @@ from qb3_tpu_torch.stitch import stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 
-from . import pack_edges, walk_edges
+from . import k5_edges, pack_edges, walk_edges
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -330,6 +331,32 @@ def test_k5_matches_twin(cuda, tbits):
             got, want = wavefront_wide(*args, tbits), wavefront_wide_plain(*args, tbits)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", list(k5_edges.CASES))
+def test_k5_edges_match_twin(cuda, name):
+    """K5a / K5b on the edge inputs of tests/k5_edges.py (every bit phase,
+    top rungs and u64 long forms past NREG, codes past NREG, nreg 1-36,
+    partial last blocks, IDX max indices 0-7, kinds outside 0-5, with and
+    without cf), from an aligned tensor and from a view one row in (rows
+    4-byte aligned where nreg is odd), against the twins, tolerance zero;
+    a call is one launch of one kernel."""
+    regs, off, rung, kind, nreg, tbits, cf = k5_edges.k5_case(name)
+    padded = torch.from_numpy(np.concatenate([np.zeros((1, nreg), np.int32), regs])).to(cuda)
+    args = tuple(torch.from_numpy(x).to(cuda) for x in (off, rung, kind)) + (nreg,)
+    args = args + ((tbits,) if tbits > 8 else ())
+    cf = None if cf is None else torch.from_numpy(cf).to(cuda)
+    kern, plain = (wavefront8, wavefront8_plain) if tbits == 8 else (wavefront_wide,
+                                                                     wavefront_wide_plain)
+    want = plain(padded[1:], *args, cf)
+    for r in (padded[1:].clone(), padded[1:]):
+        before = kern.launches
+        got = kern(r, *args, cf)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert torch.equal(got, want)
+    ops = device_profile(lambda: kern(padded[1:], *args, cf), 5)["per_op"]
+    assert len(ops) == 1 and "wavefront" in next(iter(ops)), ops
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint64])
