@@ -20,7 +20,8 @@ Mosaic probes (`python -m qb3_tpu_torch.probes`) on P1-P7.  Phases, each
 printed on earlier lines:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source;
+  2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source,
+     and measure the launch floor (an empty kernel's device time);
   3. K1 (pack), K3 (window copy) and K2 (chunk walk) at the "ic" path's
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
@@ -33,7 +34,8 @@ printed on earlier lines:
      of each strip scene and the walk of the whole u8 scene, then on the
      edge inputs of tests/k5_edges.py, then (3e)
      K6 (slab placement) at the slabs of the u8 4096x4096x3 strip encode's
-     stitch, then (3f) P1-P7 at their probes' shapes, then (3g) K4 and K2
+     stitch, then (3f) P1-P7 at their probes' shapes (and P1 at the shapes
+     of tests/p1_cases.py and on unaligned bases), then (3g) K4 and K2
      on the edge inputs of tests/walk_edges.py, each against its
      plain PyTorch twin (exact equality) and, for the probes, the probe's
      own check; median times, twin times, bounds and a one-call yardstick
@@ -41,7 +43,8 @@ printed on earlier lines:
      us beside torch.take's; K1, K8, K4, K2 and K5 at every shape with the
      device ms and the device operations of a call from a profile, which
      must be the kernel and at most one memset, for K2 and K5 the kernel
-     alone; each probe beside its one-call copy's device ms);
+     alone; each probe, and K6, beside its one-call comparator's median,
+     device ms and enqueue us);
   4. golden bytes: the committed web fixtures (streams pinned to the C
      reference) all decoded to their raw bytes, the best-mode ones
      included, and re-encoded by the port where not best mode, the headline
@@ -80,8 +83,10 @@ a one-call PyTorch yardstick where one exists; device ms where a profile
 took it, and the yardstick's for K3 and K7), the last {"ok": true,
 "device": {...}}.  A bound is the larger of the bytes the function needs
 (each input read once and each output written once, at the width of its
-values, not of the port's int64 carriers) at the memory rate and the
-integer operations this run's data needs at the INT32 rate.  It needs a
+values, not of the port's int64 carriers) at the memory rate, the
+integer operations this run's data needs at the INT32 rate (P1's products
+at the bf16 rate), and the launch floor of phase 2 (each entry's
+floor_ms), the least time any kernel takes.  It needs a
 CUDA device and the repository around it; it imports no JAX.
 """
 
@@ -123,6 +128,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # 67 TFLOP/s float32 implies (132 SMs * 128 lanes * 2 flops * 1.98e9)
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet): P1's product
+FLOOR_MS = 0.0  # the launch floor, measured in phase 2 (launch_floor)
 # 32-bit integer operations a VLC needs, at the fewest: code one value (the
 # rung 1..7 swap test, its two top bits, code and length) 5; place a code
 # or one bit (shift to the bit offset, OR into the word, advance) 3; decode
@@ -212,13 +218,36 @@ def walk_ops(vals, tbits: int) -> int:
             + vals.shape[0] * GROUP_OPS)
 
 
-def bound(need) -> tuple:
-    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the operations over their rate, the INT32 rate unless
-    need names another: (bytes, ops) or (bytes, ops, ops per second)."""
+def work_ms(need) -> tuple:
+    """(bytes ms, operations ms) of need, (bytes, ops) or (bytes, ops, ops
+    per second): the bytes over the memory rate, the operations over their
+    rate (the INT32 rate unless need names another)."""
     nbytes, ops, rate = (*need, INT_OPS_PER_S)[:3]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+
+
+def bound(need) -> tuple:
+    """(bound ms, "bytes", "operations" or "floor"): the largest of
+    work_ms(need) and the launch floor (FLOOR_MS), the least time the card
+    takes for any kernel; the word names the largest."""
+    t_bytes, t_ops = work_ms(need)
+    if FLOOR_MS > max(t_bytes, t_ops):
+        return FLOOR_MS, "floor"
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def launch_floor(dev) -> float:
+    """Phase 2: the launch floor, an empty kernel's device ms (one block of
+    32 threads; launch_times' profile), set as FLOOR_MS for bound()."""
+    global FLOOR_MS
+    from qb3_tpu_torch.ops.probe_cuda import empty
+
+    t = launch_times(lambda: empty(dev), "empty_kernel")
+    check(t["device_ms"] > 0, f"the empty kernel left no device record: {t}")
+    FLOOR_MS = t["device_ms"]
+    log(f"launch floor: an empty kernel (1 block of 32 threads) takes {FLOOR_MS:.5f} ms on the "
+        f"device ({pack_times_text(t)})")
+    return FLOOR_MS
 
 
 def compare(name, got, want):
@@ -882,33 +911,81 @@ def k5_phase(dev, card) -> dict:
     return errs
 
 
+def probe_comparator(name: str, args):
+    """One PyTorch call computing a probe's function on its inputs: P1's
+    torch.mm to float32; P2's index_select of the source's length-L windows
+    (an unfold view) at the offsets, read from device memory by the call
+    (0 <= off <= n - L, as at the probe's); P4's index_select of the rows
+    off .. off + L, their index built here from the device offset, untimed,
+    as take_windows builds K3's and K7's; P3's and P7's copy; P5's pad;
+    P6's broadcasting add, its copies' index built untimed."""
+    import torch
+
+    x = args[0]
+    if name == "dim0_dot":
+        return lambda: torch.mm(x.T, args[1], out_dtype=torch.float32)
+    if name == "1d_dma":
+        windows, off = x.unfold(0, args[2], 1), args[1]
+        return lambda: windows.index_select(0, off)
+    if name == "3d_dma":
+        rows = args[1][:1].to(torch.int64) + torch.arange(args[2], device=x.device)
+        return lambda: x.index_select(1, rows)
+    if name in ("flatten", "flatten_big"):
+        return x.reshape(1, -1).clone
+    if name == "lane_write":
+        width, col = args[1], args[2]
+        return lambda: torch.nn.functional.pad(x, (col, width - col - x.shape[1]))
+    ar = torch.arange(args[1], dtype=x.dtype, device=x.device)[:, None]
+    return lambda: torch.add(x[:, None, :], ar).view(x.shape[0], -1)
+
+
+def p1_shapes(dev, card):
+    """Phase 3f: P1 beyond the probe's shape, at tests/p1_cases.py's shapes
+    (ragged tiles, several CTAs, K = 12288): one launch a call, equal to the
+    twin on integer-valued inputs, within 2^-16 of the sum of |a_km b_kn|
+    on random bf16 ones; and on bases that are not 16-byte aligned."""
+    import torch
+
+    from qb3_tpu_torch.ops.probe_cuda import dim0_dot, dim0_dot_plain
+    from tests import p1_cases
+
+    worst = 0.0
+    for shape in p1_cases.SHAPES:
+        for integer in (True, False):
+            a, b = (torch.from_numpy(x).to(torch.bfloat16).to(dev)
+                    for x in p1_cases.inputs(shape, integer))
+            before = dim0_dot.launches
+            got = dim0_dot(a, b)
+            check(dim0_dot.launches == before + 1, f"P1 {shape}: not one launch")
+            want = dim0_dot_plain(a, b)
+            if integer:
+                compare(f"P1 {shape}", got, want)
+            else:
+                tol = 2.0 ** -16 * (a.double().abs().T @ b.double().abs())
+                ratio = float(((got.double() - want.double()).abs() / tol).max())
+                check(ratio <= 1, f"P1 {shape} random: error {ratio:.3f} x the tolerance")
+                worst = max(worst, ratio)
+    a, b = (torch.from_numpy(x).to(torch.bfloat16).to(dev)
+            for x in p1_cases.inputs((40, 64, 24), True))
+    views = []
+    for x in (a, b):
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)
+        flat[1:] = x.reshape(-1)
+        views.append(flat[1:].view(x.shape))
+    compare("P1 unaligned bases", dim0_dot(*views), dim0_dot_plain(a, b))
+    log(f"P1 at {len(p1_cases.SHAPES)} shapes (K, M, N) {p1_cases.SHAPES} and on unaligned "
+        f"bases: equal to its twin on integer-valued inputs, random bf16 within {worst:.4f} of "
+        f"the tolerance 2^-16 sum |a b| ({card})")
+
+
 def probe_phase(dev, card):
     """Phase 3f: P1-P7 at their probes' shapes against their twins and their
-    probes' own checks, each beside one PyTorch call computing the same
-    function where there is one.  Returns per-kernel results."""
+    probes' own checks, each beside one PyTorch call (probe_comparator),
+    then P1 at more shapes (p1_shapes).  Returns per-kernel results."""
     import torch
 
     from qb3_tpu_torch import probes
     from qb3_tpu_torch.benchutil import median_ms
-
-    def library(name, args):
-        if name == "dim0_dot":  # bf16 out, rounded: timed only
-            return None, lambda: torch.matmul(args[0].T, args[1])
-        if name == "1d_dma":
-            return (args[0][137:137 + 256].reshape(1, -1).clone,) * 2
-        if name in ("flatten", "flatten_big"):
-            return (args[0].reshape(1, -1).clone,) * 2
-        if name == "3d_dma":
-            return (args[0][:, 13:17, :].contiguous,) * 2
-        x = args[0]
-        if name == "lane_write":
-            fn = lambda: torch.nn.functional.pad(x, (64, 256 - 64 - x.shape[1]))  # noqa: E731
-            return fn, fn
-        # lane_concat: one broadcasting add, x (R, 1, W) + the copies' index
-        # (C, 1), built untimed, gives (R, C, W), viewed (free) as (R, C * W)
-        ar = torch.arange(args[1], dtype=x.dtype, device=x.device)[:, None]
-        fn = lambda: torch.add(x[:, None, :], ar).view(x.shape[0], -1)  # noqa: E731
-        return fn, fn
 
     results = {}
     for name in probes.PROBES:
@@ -917,16 +994,12 @@ def probe_phase(dev, card):
         got = kern(*args)
         err = compare(name, got, plain(*args))
         check(probes.PROBES[name](dev), f"probe {name}: its check failed on the card")
-        check_fn, lib_fn = library(name, args)
-        if check_fn is not None:
-            compare(name, check_fn(), got)
-        ms = median_ms(lambda: kern(*args))
-        plain_ms = median_ms(lambda: plain(*args), 5)
-        lib = median_ms(lib_fn) if lib_fn is not None else None
-        p = profiled(lambda: kern(*args))
+        comp = probe_comparator(name, args)
+        compare(name, comp(), got)
         kname = "flatten_kernel" if name.startswith("flatten") else f"{kern.__name__}_kernel"
-        dev_ms = sum(v for op, v in p["per_op"].items() if kname in op)
-        lib_dev = profiled(lib_fn)["busy_ms"] if lib_fn is not None else None
+        t = launch_times(lambda: kern(*args), kname)
+        plain_ms = median_ms(lambda: plain(*args), 5)
+        tc = launch_times(comp)
         tensors = [a for a in args if torch.is_tensor(a)]
         if name == "dim0_dot":
             need = (nbytes(*tensors, got), 2 * np.prod(args[0].shape) * args[1].shape[1],
@@ -937,10 +1010,12 @@ def probe_phase(dev, card):
             need = (nbytes(*tensors, got), got.numel() if name == "lane_concat" else 0)
         bms, by = bound(need)
         log(f"P {name} {kern.__name__} {tuple(got.shape)}: equal to its twin, probe check OK, "
-            f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.4f} ms, library "
-            f"{'none' if lib is None else f'{lib:.4f} ms (device {lib_dev:.4f} ms)'}, bound "
-            f"{bms:.6f} ms by {by} ({card})")
-        results[f"probe_{name}"] = (err, ms, plain_ms, need, lib, dev_ms, lib_dev)
+            f"kernel {pack_times_text(t)}, twin {plain_ms:.4f} ms, "
+            f"library {pack_times_text(tc)}, bound {bms:.6f} ms by {by} (floor {FLOOR_MS:.5f}) "
+            f"({card})")
+        results[f"probe_{name}"] = (err, t["ms"], plain_ms, need, tc["ms"], t["device_ms"],
+                                    tc["busy_ms"])
+    p1_shapes(dev, card)
     return results
 
 
@@ -1117,46 +1192,58 @@ def strip_decode(stream, dev):
     return np.concatenate(rows), sd.decode_path
 
 
-def k6_phase(dev, card, x):
-    """Phase 3e: K6 against its twin at the slabs the stitch of the u8
-    4096x4096x3 strip encode places, with one index_add_ call on the same
-    slabs as the yardstick and the kernel's device time from a profile."""
-    import torch
-
-    from qb3_tpu_torch.benchutil import median_ms
+def k6_inputs(dev, x) -> tuple:
+    """K6's inputs at the stitch of the strip encode of x (strip_cases' u8
+    4096x4096x3 scene): (slab, base, words in the stream)."""
     from qb3_tpu_torch.constants import Mode
-    from qb3_tpu_torch.ops.place_cuda import place_slabs, place_slabs_plain
     from qb3_tpu_torch.stitch import stitch_slabs
 
     keep = {}
     strip_encode(x, Mode.FTL, False, dev, keep)
     slab, base = stitch_slabs(keep["parts"], keep["totals"])
-    n_out = -(-sum(keep["totals"]) // 32)
-    got = place_slabs(slab, base, n_out)
-    err = compare("place_slabs", got, place_slabs_plain(slab, base, n_out))
-    ms = median_ms(lambda: place_slabs(slab, base, n_out))
-    plain = median_ms(lambda: place_slabs_plain(slab, base, n_out), 5)
-    # yardstick: index_add_ into a zeroed stream, index built untimed
-    idx = base.to(torch.int64)[:, None] + torch.arange(slab.shape[1], device=dev)
+    return slab, base, -(-sum(keep["totals"]) // 32)
+
+
+def k6_calls(slab, base, n_out) -> tuple:
+    """K6's wrapper on its inputs, and its yardstick: index_add_ of the
+    slabs into a zeroed stream, the index built untimed -> (kernel call,
+    index_add_ call)."""
+    import torch
+
+    from qb3_tpu_torch.ops.place_cuda import place_slabs
+
+    idx = base.to(torch.int64)[:, None] + torch.arange(slab.shape[1], device=slab.device)
     live = idx < n_out
     idx, vals = torch.where(live, idx, 0).reshape(-1), torch.where(live, slab, 0).reshape(-1)
 
     def index_add():
-        return torch.zeros(n_out, dtype=torch.int32, device=dev).index_add_(0, idx, vals)
+        return torch.zeros(n_out, dtype=torch.int32, device=slab.device).index_add_(0, idx, vals)
 
+    return (lambda: place_slabs(slab, base, n_out)), index_add
+
+
+def k6_phase(dev, card, x):
+    """Phase 3e: K6 against its twin at the slabs the stitch of the u8
+    4096x4096x3 strip encode places, with one index_add_ call on the same
+    slabs as the yardstick and the kernel's device time from a profile."""
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.ops.place_cuda import place_slabs_plain
+
+    slab, base, n_out = k6_inputs(dev, x)
+    place, index_add = k6_calls(slab, base, n_out)
+    got = place()
+    err = compare("place_slabs", got, place_slabs_plain(slab, base, n_out))
     compare("place_slabs", index_add(), got)
-    lib = median_ms(index_add)
-    p = profiled(lambda: place_slabs(slab, base, n_out))
-    kernel_ms = sum(v for k, v in p["per_op"].items() if "place_slabs_kernel" in k)
+    t = launch_times(place, "place_slabs_kernel")
+    plain = median_ms(lambda: place_slabs_plain(slab, base, n_out), 5)
+    tl = launch_times(index_add)
     need = (nbytes(slab, base, got), slab.numel())
     bms, by = bound(need)
-    log(f"K6 place_slabs u8 4096x4096x3 strip stitch: {len(keep['parts'])} strips, slabs "
-        f"{tuple(slab.shape)}, {n_out} words: equal, kernel {ms:.4f} ms (device "
-        f"{kernel_ms:.4f} ms; the wrapper's zero fill and launch make up the rest of "
-        f"{p['busy_ms']:.4f} ms busy), twin {plain:.4f} ms, index_add_ {lib:.4f} ms, bound "
-        f"{bms:.5f} ms by {by} ({need[0]} bytes, {need[1]} adds) ({card})")
-    del keep, slab, base, got, idx, vals, live
-    return {"place_slabs": (err, ms, plain, need, lib, kernel_ms, None)}
+    log(f"K6 place_slabs u8 4096x4096x3 strip stitch: {slab.shape[0]} slabs "
+        f"{tuple(slab.shape)}, {n_out} words: equal, kernel {pack_times_text(t)}, twin "
+        f"{plain:.4f} ms, index_add_ {pack_times_text(tl)}, bound {bms:.5f} ms by {by} "
+        f"({need[0]} bytes, {need[1]} adds) ({card})")
+    return {"place_slabs": (err, t["ms"], plain, need, tl["ms"], t["device_ms"], tl["busy_ms"])}
 
 
 def strip_phase(dev, card, kernels, cases):
@@ -1441,6 +1528,7 @@ def main() -> int:
         for line in f:
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
+    launch_floor(dev)
 
     img = headline_image()
     tiles = np.stack([headline_image(seed=100 + i) for i in range(BATCH)])
@@ -1680,12 +1768,16 @@ def main() -> int:
         # device ms (profiled: K1-K4, K6-K8, P1-P7; K1, K2, K4 and K8 all they issue) and
         # the library call's, else None
         err, ms, plain, need, lib, dev_ms, lib_dev = (*kres[name], None, None)[:7]
-        bms, by = bound(need)
+        # bound_by names the larger work term, bound_term what sets bound_ms
+        # (the floor where it is larger than both)
+        bms, term = bound(need)
+        t_bytes, t_ops = work_ms(need)
         line.append({"name": name, "route": "cuda", "source": KERNELS[name][0],
                      "replaces": KERNELS[name][1], "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                     "bound_by": by, "library_ms": lib, "device_ms": dev_ms,
-                     "library_device_ms": lib_dev})
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bound_term": term, "library_ms": lib, "device_ms": dev_ms,
+                     "library_device_ms": lib_dev, "floor_ms": FLOOR_MS})
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,7 @@ SIGNATURES = {
     "qb3_probe_dma_3d": [_P, _I32, _I32, _I32, _P, _I32, _P, _P],
     "qb3_probe_lane_write": [_P, _I32, _I32, _I32, _I32, _P, _P],
     "qb3_probe_lane_concat": [_P, _I32, _I32, _I32, _P, _P],
+    "qb3_empty": [_P],
 }
 
 

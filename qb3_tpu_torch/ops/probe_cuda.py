@@ -9,7 +9,8 @@ device memory (P4), a write into a column window of an output the kernel
 zeroes (P5) and a column concatenation of x, x + 1, ... (P6).  A wrapper
 takes its twin for a CPU tensor and launches the kernel for a CUDA tensor;
 there is no fallback from one to the other.  qb3_tpu_torch/probes.py runs
-them as the probes run theirs.
+them as the probes run theirs.  `empty` launches an empty kernel, the launch
+floor that chip_smoke.py and ab_probes.py time beside the kernels.
 """
 
 from __future__ import annotations
@@ -25,17 +26,21 @@ _P3 = _build.Kernel("qb3_probe_flatten")  # P3 and P7
 _P4 = _build.Kernel("qb3_probe_dma_3d")
 _P5 = _build.Kernel("qb3_probe_lane_write")
 _P6 = _build.Kernel("qb3_probe_lane_concat")
+_EMPTY = _build.Kernel("qb3_empty")
 
 
 def dim0_dot_plain(a, b):
-    """P1's twin: aᵀ·b of (K, M) and (K, N) bf16 as the kernel sums it, the
-    f32 products of the bf16 operands added over K -> (M, N) float32."""
-    return (a.float()[:, :, None] * b.float()[:, None, :]).sum(0)
+    """P1's twin: aᵀ·b of (K, M) and (K, N) bf16 -> (M, N) float32, the
+    products (exact in float64) summed in float64 and rounded to float32
+    once.  The kernel sums in float32 on the tensor cores, in its own
+    order: equal to the twin where every partial sum is an integer below
+    2^24, else within 2^-16 of the sum of |a_km b_kn| (the tests' bound)."""
+    return (a.double().T @ b.double()).float()
 
 
 def dim0_dot(a, b):
     """P1: a (K, M), b (K, N) bfloat16 -> (M, N) float32 = aᵀ·b, computed
-    in the kernel's body (no library product)."""
+    by the kernel on the tensor cores (no library product)."""
     if on_cpu(a):
         return dim0_dot_plain(a, b)
     require(a, torch.bfloat16, "a", 2)
@@ -156,6 +161,15 @@ def lane_concat(x, copies: int):
     _P6(x.data_ptr(), x.shape[0], x.shape[1], copies, out.data_ptr(), stream_ptr(x.device))
     lane_concat.launches += 1
     return out
+
+
+def empty(device) -> None:
+    """The launch floor: one empty kernel (one block of 32 threads) on the
+    current stream of `device` (a CUDA device; "cuda" means the current
+    one).  It computes nothing and counts nothing."""
+    index = torch.device(device).index
+    _EMPTY(stream_ptr(torch.device("cuda", torch.cuda.current_device() if index is None
+                                   else index)))
 
 
 dim0_dot.launches = 0

@@ -28,7 +28,7 @@ from qb3_tpu_torch.api import (_fused_ix_params, default_cband, ic_inputs, padde
 from qb3_tpu_torch.batch import _flat_tile_layout
 from qb3_tpu_torch.benchutil import LANDSAT_SAMPLE, device_profile, headline_image
 from qb3_tpu_torch.constants import HILBERT, TYPESIZES, ZCURVE, Mode, is_best_mode
-from qb3_tpu_torch.ops import bitpack, pack_cuda
+from qb3_tpu_torch.ops import bitpack, pack_cuda, probe_cuda
 from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8, chunkwalk8_plain
 from qb3_tpu_torch.ops.decode import ix_parse, ix_regs, payload_words
 from qb3_tpu_torch.ops.decode_chunked import decode_chunked, parse_ic
@@ -44,7 +44,7 @@ from qb3_tpu_torch.stitch import stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 
-from . import k5_edges, pack_edges, walk_edges
+from . import k5_edges, p1_cases, pack_edges, walk_edges
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -652,3 +652,57 @@ def test_probe_kernels_match_twins(cuda, name):
     assert kernel.launches == before + 1
     assert torch.equal(got.cpu(), plain(*(a.cpu() if torch.is_tensor(a) else a for a in args)))
     assert probes.PROBES[name](cuda)
+
+
+def _p1_check(got, a, b, integer: bool):
+    """P1's output against its twin on the CPU: equal on integer-valued
+    inputs, within p1_cases.tolerance on random ones."""
+    want = probe_cuda.dim0_dot_plain(torch.from_numpy(a).to(torch.bfloat16),
+                                     torch.from_numpy(b).to(torch.bfloat16))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if integer:
+        assert torch.equal(got.cpu(), want)
+    else:
+        err = (got.cpu().double() - want.double()).abs().numpy()
+        bound = p1_cases.tolerance(a, b)
+        assert (err <= bound).all(), float((err / bound).max())
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "random"])
+@pytest.mark.parametrize("shape", p1_cases.SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_p1_matches_twin(cuda, shape, integer):
+    """P1 on the tensor cores at ragged, multi-CTA and long shapes: one
+    launch a call, equal to its twin on integer-valued inputs and within
+    2^-16 of the sum of |a_km b_kn| on random bf16 ones."""
+    a, b = p1_cases.inputs(shape, integer)
+    before = probe_cuda.dim0_dot.launches
+    got = probe_cuda.dim0_dot(*(torch.from_numpy(x).to(torch.bfloat16).to(cuda) for x in (a, b)))
+    torch.cuda.synchronize()
+    assert probe_cuda.dim0_dot.launches == before + 1
+    _p1_check(got, a, b, integer)
+
+
+def test_p1_reads_unaligned_rows(cuda):
+    """Bases that are not 16-byte aligned (views one element into their
+    storage), with M and N multiples of 8: the threads read the rows."""
+    a, b = p1_cases.inputs((40, 64, 24), True)
+    views = []
+    for x in (a, b):
+        flat = torch.zeros(x.size + 1, dtype=torch.bfloat16, device=cuda)
+        flat[1:] = torch.from_numpy(x.reshape(-1)).to(torch.bfloat16).to(cuda)
+        views.append(flat[1:].view(x.shape))
+    assert all(v.data_ptr() % 16 for v in views)
+    _p1_check(probe_cuda.dim0_dot(*views), a, b, True)
+
+
+def test_p1_refuses_what_its_kernel_does_not_take(cuda):
+    a = torch.ones(16, 8, dtype=torch.bfloat16, device=cuda)
+    b = torch.ones(16, 24, dtype=torch.bfloat16, device=cuda)
+    for args, err in (((a.float(), b), TypeError), ((a, b.half()), TypeError),
+                      ((a.T.contiguous().T, b), ValueError), ((a, b[:, ::2]), ValueError),
+                      ((a[None], b), ValueError), ((a, b[:8]), ValueError),
+                      ((a, b.cpu()), ValueError)):
+        before = probe_cuda.dim0_dot.launches
+        with pytest.raises(err):
+            probe_cuda.dim0_dot(*args)
+        assert probe_cuda.dim0_dot.launches == before

@@ -8,7 +8,10 @@ probes take no interpret argument) and prints its OK line too, the DMA
 probes P2 and P4 included.  The wrapper also records the JAX kernel's
 inputs and output: the port's probe must build the same inputs, and its
 wrapper and twin must return the same output on them.  The tolerance is
-zero.
+zero.  P1's twin is also held to jax.lax.dot_general, the body of its
+probe's kernel, at the CPU shapes of tests/p1_cases.py: exactly on
+integer-valued inputs, within 2^-16 of the sum of |a_km b_kn| on random
+bf16 ones (two float32 summation orders).
 """
 
 import functools
@@ -18,10 +21,14 @@ import os
 import numpy as np
 import pytest
 import torch
+import jax
+import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from qb3_tpu_torch import probes
 from qb3_tpu_torch.ops import probe_cuda
+
+from . import p1_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LINES = {"dim0_dot": "dim0-contraction dot", "1d_dma": "1-D HBM arbitrary-offset DMA",
@@ -122,3 +129,26 @@ def test_twins_outside_the_probes_shapes():
     np.testing.assert_array_equal(probe_cuda.lane_concat(x, 3).numpy(),
                                   np.concatenate([x.numpy() + i for i in range(3)], axis=1))
     np.testing.assert_array_equal(probe_cuda.flatten(x).numpy(), x.numpy().reshape(1, -1))
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "random"])
+@pytest.mark.parametrize("shape", p1_cases.CPU_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dim0_dot_twin_against_dot_general(shape, integer):
+    """P1's twin (and its wrapper on the CPU) against the body of the TPU
+    probe's kernel, jax.lax.dot_general contracting dim 0 of both operands
+    with float32 results, on the same bf16 inputs: equal on integer-valued
+    inputs, within 2^-16 of the sum of |a_km b_kn| on random ones (two
+    float32 summation orders)."""
+    a, b = p1_cases.inputs(shape, integer)
+    want = np.asarray(jax.lax.dot_general(
+        jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16), (((0,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32))
+    ta, tb = (torch.from_numpy(x).to(torch.bfloat16) for x in (a, b))
+    for fn in (probe_cuda.dim0_dot_plain, probe_cuda.dim0_dot):
+        got = fn(ta, tb).numpy()
+        assert got.dtype == np.float32 and got.shape == want.shape == shape[1:]
+        if integer:
+            np.testing.assert_array_equal(got, want)
+        else:
+            err = np.abs(got.astype(np.float64) - want)
+            assert (err <= p1_cases.tolerance(a, b)).all()
