@@ -15,9 +15,13 @@ write by default), by the serial walk on the host and K7 + K5 on the card,
 at the headline and wide shapes and on the repository's Landsat sample (a
 512x512x8 u16 CF_H stream); the streaming strips (StripEncoder /
 StripDecoder) of a u8 4096x4096x3 FTL scene and a u16 4096x4096x1 BASE_H
-elevation raster in 256-row strips, stitched on the card by K6; and the
-Mosaic probes (`python -m qb3_tpu_torch.probes`) on P1-P7.  Phases, each
-printed on earlier lines:
+elevation raster in 256-row strips, stitched on the card by K6; the best
+modes (CF_H): the encode (phase A in plain PyTorch, then K1 at 27 or 43
+symbols a group) with the "ib" and "ic" sidecars and without, their
+decodes (K7 + K5, the "ic"-best chunk walk in plain PyTorch, the serial
+walk), a batch of 128 u8 512x512x3 tiles with "ib" and the u16 elevation
+raster's strips; and the Mosaic probes (`python -m qb3_tpu_torch.probes`)
+on P1-P7.  Phases, each printed on earlier lines:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source,
@@ -26,17 +30,23 @@ printed on earlier lines:
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
      + pack) at the wide shapes, FTL and BASE, then K7 (window gather) at
-     the walk's u8 512x512x3 and u64 1024x1024x1 windows, then (3d) K5a and
+     the walk's u8 512x512x3 and u64 1024x1024x1 windows and the 128-tile
+     best batch's "ib" windows, then (3d) K5a and
      K5b at every other launch shape: best-mode kinds (CF, CF0, IDX; the
      Landsat sample's groups, a damaged 512x512x3 BASE_H stream whose walk
      meets best-mode codes, u32 / u64 random windows over every kind, with
      kind counts), the seven walk decodes of phase 5, a StripDecoder read
-     of each strip scene and the walk of the whole u8 scene, then on the
+     of each strip scene and the walk of the whole u8 scene, the best
+     modes' "ib" decodes (u8 512x512x3, u64 1024x1024x1, 128 u8 tiles) and
+     a best strip read of the u16 raster, then on the
      edge inputs of tests/k5_edges.py, then (3e)
      K6 (slab placement) at the slabs of the u8 4096x4096x3 strip encode's
-     stitch, then (3f) P1-P7 at their probes' shapes (and P1 at the shapes
-     of tests/p1_cases.py and on unaligned bases), then (3g) K4 and K2
-     on the edge inputs of tests/walk_edges.py, each against its
+     stitch and of the u16 raster's best strips, then (3f) P1-P7 at their
+     probes' shapes (and P1 at the shapes of tests/p1_cases.py and on
+     unaligned bases), then (3g) K4 and K2
+     on the edge inputs of tests/walk_edges.py, then (3h) K1 at the best
+     encode's shapes (u8 512x512x3 CF_H, 27 symbols a group; u64
+     1024x1024x1 CF_H, 43), each against its
      plain PyTorch twin (exact equality) and, for the probes, the probe's
      own check; median times, twin times, bounds and a one-call yardstick
      (K3 and K7 at every shape also with their device ms and host enqueue
@@ -46,11 +56,13 @@ printed on earlier lines:
      alone; each probe, and K6, beside its one-call comparator's median,
      device ms and enqueue us);
   4. golden bytes: the committed web fixtures (streams pinned to the C
-     reference) all decoded to their raw bytes, the best-mode ones
-     included, and re-encoded by the port where not best mode, the headline
-     stream's sha256 and the four wide "ix" streams' sha256s (through the
-     image-layout encode); the Landsat sample decoded to its pinned sha256
-     through the C++ walk, K7 and K5b, with the twins refused;
+     reference) all decoded to their raw bytes and re-encoded by the port
+     to their bytes, the three best-mode ones included, the headline
+     stream's sha256, the best headline's (CF_H) with "ib" and with "ic",
+     and the four wide "ix" streams' sha256s (through the image-layout
+     encode); the Landsat sample decoded and encoded again to its own bytes
+     (CF_H), and decoded to its pinned sha256 through the C++ walk, K7 and
+     K5b, with the twins refused;
   5. the main paths through the public API with the launch counters reset:
      "ic" single image, 128-tile batch, u16 1024x1024x1 and u64 256x256x1
      round trips, "ix" round trips at every "ix" shape and the K5 branch of
@@ -69,14 +81,24 @@ printed on earlier lines:
      K1 or K8 once a strip) and decode read per stream, host-to-host MB/s of
      the strip and whole-image encodes and decodes, K6's stitch beside the
      host stitch it replaces, and the peak device memory of the strip
-     encode against the whole-image encode; the Landsat sample's decode
+     encode against the whole-image encode; the best modes: u8 512x512x3
+     and u64 1024x1024x1 CF_H round trips with "ib" ("ib" decode), "ic"
+     ("ic-best") and no sidecar (the walk), device-resident and host-to-host
+     MB/s, the encode split into phase A and K1 and the "ic"-best decode
+     into its walk and reconstruct, a CF_H batch of 128 tiles with "ib"
+     (one K1, one K7 and one K5a launch, peak device memory) and the u16
+     elevation raster through the best StripEncoder / StripDecoder (equal to
+     the whole-image encode, K1 a strip, K6 once, K7 + K5b a strip read,
+     peak device memory); the Landsat sample's decode
      host to host, split the same way, with a device profile; the probes'
      path with all seven names, in this process (launch counts) and as
      `python -m qb3_tpu_torch.probes` (an OK line per probe).
 
 Launch counts are set to 0 just before each main path and read just after;
 each kernel's count in the result is from the path that runs it, summed
-over the "ix", walk and strip paths for K5a, K5b and K7.  Any
+over the "ix", walk, strip and best paths for K5a, K5b and K7.  The line
+also holds K1 at the best modes' symbol counts as two entries of their own
+(BEST_K1), their launches counted on the best paths.  Any
 failure exits non-zero and prints no result.  The line before the last is
 {"kernels": [...]} (each kernel's error, median ms, twin ms, bound ms, and
 a one-call PyTorch yardstick where one exists; device ms where a profile
@@ -121,6 +143,10 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
     "probe_lane_concat": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:123"),
     "probe_flatten_big": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:138"),
 }
+# the kernels line's entries of K1 at the best modes' symbol counts: name ->
+# the raster of phase 3's shape
+BEST_K1 = {"pack_groups_chunked best S=27": "u8 512x512x3",
+           "pack_groups_chunked best S=43": "u64 1024x1024x1"}
 STRIP_ROWS = 256  # rows a strip encodes and a strip read returns (phase 5)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM INT32 rate: 64 INT32 lanes per SM and clock (NVIDIA H100 Tensor
@@ -326,6 +352,24 @@ def check_one_launch(name: str, t: dict, kernel: str, memset: bool = True):
           + (" and at most one memset" if memset else " alone"))
 
 
+def reset(kernels):
+    """Set every launch count to 0."""
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def peak_bytes(fn) -> int:
+    """Peak device memory of fn() above what was allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
 def take_windows(words32, first, width: int):
     """The one-call yardstick of K3 and K7: torch.take on the zero-padded
     stream with the int64 index of every window word, built here, untimed
@@ -378,6 +422,57 @@ def k1_cases(img, tiles, dev):
                                                HILBERT, (1, 1, 1), True, 8,
                                                lanewise=bool(lead))
         yield label, (codes, lens, n_words, maxbits)
+
+
+def k1_best_cases(imgs: dict, dev):
+    """K1's shapes on the best encode, one at a time: (entry name, tbits,
+    the arguments of pack_groups_chunked) for BEST_K1's rasters, phase A
+    (encode_best_blocks) run on the card."""
+    import torch
+
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.constants import HILBERT
+    from qb3_tpu_torch.ops import bitpack
+    from qb3_tpu_torch.ops.encode_best import encode_best_blocks
+
+    for name, label in BEST_K1.items():
+        x = imgs[label]
+        (h, w, nb), tb = x.shape, 8 * x.itemsize
+        zero = torch.zeros(nb, dtype=torch.int64, device=dev)
+        codes, lens = encode_best_blocks(api.to_carrier(x, dev), zero, zero, zero, HILBERT,
+                                         tuple(api.default_cband(nb)), tb)[:2]
+        yield name, tb, (codes, lens, api.stream_words(w, h, nb, api.DT_FROM_NP[x.dtype]),
+                         bitpack.group_bits_bound(tb, best=True))
+
+
+def k1_best_phase(dev, card, imgs: dict) -> dict:
+    """Phase 3h: K1 against its twin at the best encode's shapes (S = 27 at
+    u8, 43 at u64), with the median, the device ms and ops of a call (the
+    kernel and at most one memset), the twin's median and the bound."""
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.ops import bitpack, pack_cuda
+
+    results = {}
+    for name, tb, args in k1_best_cases(imgs, dev):
+        codes, lens = args[:2]
+        check(codes.shape[-1] == (43 if tb == 64 else 27), f"{name}: {codes.shape[-1]} symbols")
+        got = pack_cuda.pack_groups_chunked(*args)
+        err = compare(name, got, bitpack.pack_groups(*args))
+        ngroups, placed = lens.numel() // lens.shape[-1], int((lens > 0).sum())
+        need = (codes.numel() * CODE_BYTES[tb] + lens.numel() + 2 * ngroups
+                + stream_bytes(got[1]) + nbytes(got[1]),
+                placed * PLACE_OPS * wide(tb) + ngroups * GROUP_OPS)
+        t1 = launch_times(lambda: pack_cuda.pack_groups_chunked(*args), "pack_groups_kernel")
+        check_one_launch(f"K1 {name}", t1, "pack_groups_kernel")
+        plain = median_ms(lambda: bitpack.pack_groups(*args), 5)
+        bms, by = bound(need)
+        log(f"K1 pack_groups_chunked best {BEST_K1[name]} CF_H codes {tuple(codes.shape)}: equal; "
+            f"{pack_times_text(t1)}; twin {plain:.4f} ms; bound {bms:.5f} ms by {by} "
+            f"({need[0]} bytes, {need[1]} operations); {placed} of {lens.numel()} symbols "
+            f"placed ({card})")
+        results[name] = (err, t1["ms"], plain, need, None, t1["busy_ms"], None)
+        del codes, lens, args, got
+    return results
 
 
 def kernel_phase(dev, card, img, tiles, u16):
@@ -715,6 +810,46 @@ def k5_walk_case(inp: dict, tbits: int) -> dict:
                 tbits=tbits, cf=inp["cf"])
 
 
+def best_ib_case(streams, dev) -> tuple:
+    """decode_groups' inputs of best-mode "ib" streams, one (padded as the
+    Decoder pads it) or a same-shape batch in decode_tiles' flat tile
+    layout, and their kinds -> (inputs, kinds, tbits)."""
+    from qb3_tpu_torch import api, container
+    from qb3_tpu_torch.batch import _flat_tile_layout, ib_meta
+    from qb3_tpu_torch.constants import TYPESIZES
+    from qb3_tpu_torch.ops.decode import payload_words
+
+    infos = [container.parse_headers(s) for s in streams]
+    i0 = infos[0]
+    check(all(i.index_best is not None for i in infos), "a best stream lacks its ib sidecar")
+    if len(streams) == 1:
+        words, tile_words32 = api.padded_words(streams[0][i0.data_offset:]), 0
+    else:
+        words, tile_words32 = _flat_tile_layout(
+            [payload_words(s[i.data_offset:]) for s, i in zip(streams, infos)])
+    ngroups = ((i0.ysize + 3) // 4) * ((i0.xsize + 3) // 4) * i0.nbands
+    meta = ib_meta([api._parse_best_sidecar(i.index_best, ngroups) for i in infos],
+                   tile_words32)
+    tb = 8 * TYPESIZES[i0.dtype]
+    return api.walk_inputs(meta, words.reshape(-1), tb, dev), meta["kind"], tb
+
+
+def best_ib_streams(dev, tiles) -> dict:
+    """The best modes' "ib" decode inputs of phase 5: label -> streams (the
+    u8 512x512x3 headline and the u64 1024x1024x1 raster in CF_H, and the
+    BATCH tiles' batch)."""
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch.benchutil import headline_image, wide_image
+    from qb3_tpu_torch.constants import Mode
+
+    return {"u8 512x512x3 CF_H": [qt.encode(headline_image(), mode=Mode.CF_H, index=True,
+                                            device=dev)],
+            "u64 1024x1024x1 CF_H": [qt.encode(wide_image("u64 1024x1024x1"), mode=Mode.CF_H,
+                                               index=True, device=dev)],
+            f"u8 512x512x3 CF_H batch{BATCH}": qt.encode_tiles(tiles, mode=Mode.CF_H,
+                                                                index=True, device=dev)}
+
+
 def strip_read_case(stream, dev) -> dict:
     """K5's inputs of a StripDecoder's first STRIP_ROWS-row read of stream:
     decode_groups' arguments as strip.py passes them, caught on the way."""
@@ -777,15 +912,18 @@ def k5_time(label: str, case: dict, card: str, note: str = "") -> tuple:
     return name, (err, t["ms"], plain_ms, need, None, t["busy_ms"], None)
 
 
-def k7_phase(dev, card, img, u64):
-    """Phase 3d: K7 against its twin at the windows the walk decode gathers:
-    the headline u8 tile and u64 1024x1024x1."""
+def k7_phase(dev, card, img, u64, best):
+    """Phase 3d: K7 against its twin at the windows the walk decode gathers
+    (the headline u8 tile and u64 1024x1024x1) and the best batch's "ib"
+    decode (best: best_ib_streams' dict)."""
     from qb3_tpu_torch.benchutil import median_ms
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs, gather_slabs_plain
 
     res = None
-    for label, x in (("u8 512x512x3", img), ("u64 1024x1024x1", u64)):
-        a = k7_inputs(x, dev)
+    batch = f"u8 512x512x3 CF_H batch{BATCH}"
+    for label, a in (("u8 512x512x3", k7_inputs(img, dev)),
+                     ("u64 1024x1024x1", k7_inputs(u64, dev)),
+                     (f"ib {batch}", best_ib_case(best[batch], dev)[0])):
         words32, base, W, R = a["words32"], a["base"], a["nreg"], a["R"]
         got = gather_slabs(words32, base, W, R)
         err = compare("gather_slabs", got, gather_slabs_plain(words32, base, W))
@@ -803,11 +941,11 @@ def k7_phase(dev, card, img, u64):
             f"{bms:.5f} ms by {by} ({need[0]} bytes) ({card})")
         res = (max(err, res[0]),) + res[1:] if res else (
             err, t7["ms"], plain, need, tt["ms"], t7["device_ms"], tt["device_ms"])
-        del got, take
+        del got, take, a
     return {"gather_slabs": res}
 
 
-def k5_decode_cases(dev):
+def k5_decode_cases(dev, best):
     """K5's launch shapes on the decodes that gather windows with K7, one at
     a time: (label, case, the walk's kinds or None).  Best-mode kinds: the
     Landsat sample's walk groups (u16), the groups of a damaged 512x512x3
@@ -817,8 +955,9 @@ def k5_decode_cases(dev):
     encode's streams: u8 512x512x3 FTL, BASE_Z and RLE_H with a no-data
     rectangle, the four wide images in FTL); a StripDecoder read of each
     strip scene (u8 4096x4096x3 FTL without a sidecar, u16 4096x4096x1
-    BASE_H with "ix", which strip reads walk as well); and the walk of the
-    whole u8 scene."""
+    BASE_H with "ix", which strip reads walk as well); the walk of the
+    whole u8 scene; the best modes' "ib" decodes (best: best_ib_streams'
+    dict) and a best StripDecoder read of the u16 raster in CF_H."""
     import torch
 
     import qb3_tpu_torch as qt
@@ -873,7 +1012,15 @@ def k5_decode_cases(dev):
         if x.itemsize == 1:
             c = stream_walk(s, dev)
             yield f"walk {label} scene", k5_walk_case(c["inp"], 8), None
+        else:
+            s = qt.encode(x, mode=Mode.CF_H, index=True, device=dev)
+            yield (f"best strip read u16 4096x4096x1 CF_H ib, {STRIP_ROWS} rows",
+                   strip_read_case(s, dev), None)
         del s
+    for label, streams in best.items():
+        inp, kind, tb = best_ib_case(streams, dev)
+        yield f"ib {label}", k5_walk_case(inp, tb), kind
+        del inp
 
 
 def k5_edge_cases(dev):
@@ -890,13 +1037,13 @@ def k5_edge_cases(dev):
                          cf=None if cf is None else torch.from_numpy(cf).to(dev))
 
 
-def k5_phase(dev, card) -> dict:
+def k5_phase(dev, card, best) -> dict:
     """Phase 3d: K5a and K5b at every launch shape of the decodes that
     gather windows (k5_decode_cases), each against its twin with its times
     and bound (k5_time), then on the edge inputs of tests/k5_edges.py
     against the twins, tolerance zero.  Returns {kernel: max abs err}."""
     errs = {}
-    for label, case, kind in k5_decode_cases(dev):
+    for label, case, kind in k5_decode_cases(dev, best):
         note = "" if kind is None else f", kinds {kind_counts(kind)}"
         name, res = k5_time(label, case, card, note)
         errs[name] = max(errs.get(name, 0), res[0])
@@ -1027,8 +1174,7 @@ def probe_main_path(kernels) -> dict:
     from qb3_tpu_torch import probes
 
     names = list(probes.PROBES)
-    for fn in kernels.values():
-        fn.launches = 0
+    reset(kernels)
     check(probes.main(names) == 0, "a probe failed")
     launches = {f"probe_{n}": probes.KERNELS[n][0].launches for n in names}
     log(f"launch counts on the probes' path: {launches}")
@@ -1073,8 +1219,7 @@ def landsat_pin(dev, card, kernels) -> dict:
 
     with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
         stream = f.read()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset(kernels)
     with no_twins():
         dec = qt.Decoder(stream, device=dev)
         out = dec.read_data()
@@ -1192,14 +1337,13 @@ def strip_decode(stream, dev):
     return np.concatenate(rows), sd.decode_path
 
 
-def k6_inputs(dev, x) -> tuple:
-    """K6's inputs at the stitch of the strip encode of x (strip_cases' u8
-    4096x4096x3 scene): (slab, base, words in the stream)."""
-    from qb3_tpu_torch.constants import Mode
+def k6_inputs(dev, x, mode) -> tuple:
+    """K6's inputs at the stitch of the strip encode of x in mode:
+    (slab, base, words in the stream)."""
     from qb3_tpu_torch.stitch import stitch_slabs
 
     keep = {}
-    strip_encode(x, Mode.FTL, False, dev, keep)
+    strip_encode(x, mode, False, dev, keep)
     slab, base = stitch_slabs(keep["parts"], keep["totals"])
     return slab, base, -(-sum(keep["totals"]) // 32)
 
@@ -1222,28 +1366,35 @@ def k6_calls(slab, base, n_out) -> tuple:
     return (lambda: place_slabs(slab, base, n_out)), index_add
 
 
-def k6_phase(dev, card, x):
-    """Phase 3e: K6 against its twin at the slabs the stitch of the u8
-    4096x4096x3 strip encode places, with one index_add_ call on the same
-    slabs as the yardstick and the kernel's device time from a profile."""
+def k6_phase(dev, card, cases: dict):
+    """Phase 3e: K6 against its twin at the slabs the stitch of each strip
+    encode places (cases: label -> (raster, mode); the first is the u8
+    4096x4096x3 FTL scene, whose times the kernels line keeps), with one
+    index_add_ call on the same slabs as the yardstick and the kernel's
+    device time from a profile."""
     from qb3_tpu_torch.benchutil import median_ms
     from qb3_tpu_torch.ops.place_cuda import place_slabs_plain
 
-    slab, base, n_out = k6_inputs(dev, x)
-    place, index_add = k6_calls(slab, base, n_out)
-    got = place()
-    err = compare("place_slabs", got, place_slabs_plain(slab, base, n_out))
-    compare("place_slabs", index_add(), got)
-    t = launch_times(place, "place_slabs_kernel")
-    plain = median_ms(lambda: place_slabs_plain(slab, base, n_out), 5)
-    tl = launch_times(index_add)
-    need = (nbytes(slab, base, got), slab.numel())
-    bms, by = bound(need)
-    log(f"K6 place_slabs u8 4096x4096x3 strip stitch: {slab.shape[0]} slabs "
-        f"{tuple(slab.shape)}, {n_out} words: equal, kernel {pack_times_text(t)}, twin "
-        f"{plain:.4f} ms, index_add_ {pack_times_text(tl)}, bound {bms:.5f} ms by {by} "
-        f"({need[0]} bytes, {need[1]} adds) ({card})")
-    return {"place_slabs": (err, t["ms"], plain, need, tl["ms"], t["device_ms"], tl["busy_ms"])}
+    res = None
+    for label, (x, mode) in cases.items():
+        slab, base, n_out = k6_inputs(dev, x, mode)
+        place, index_add = k6_calls(slab, base, n_out)
+        got = place()
+        err = compare("place_slabs", got, place_slabs_plain(slab, base, n_out))
+        compare("place_slabs", index_add(), got)
+        t = launch_times(place, "place_slabs_kernel")
+        plain = median_ms(lambda: place_slabs_plain(slab, base, n_out), 5)
+        tl = launch_times(index_add)
+        need = (nbytes(slab, base, got), slab.numel())
+        bms, by = bound(need)
+        log(f"K6 place_slabs {label} strip stitch: {slab.shape[0]} slabs "
+            f"{tuple(slab.shape)}, {n_out} words: equal, kernel {pack_times_text(t)}, twin "
+            f"{plain:.4f} ms, index_add_ {pack_times_text(tl)}, bound {bms:.5f} ms by {by} "
+            f"({need[0]} bytes, {need[1]} adds) ({card})")
+        res = (max(err, res[0]),) + res[1:] if res else (
+            err, t["ms"], plain, need, tl["ms"], t["device_ms"], tl["busy_ms"])
+        del slab, base, got
+    return {"place_slabs": res}
 
 
 def strip_phase(dev, card, kernels, cases):
@@ -1254,8 +1405,6 @@ def strip_phase(dev, card, kernels, cases):
     encodes and decodes, K6's stitch beside the host stitch it replaces,
     and the peak device memory of both encodes.  Returns the launch counts
     summed over the strip paths."""
-    import torch
-
     import qb3_tpu_torch as qt
     from qb3_tpu_torch.benchutil import host_seconds, sustained
     from qb3_tpu_torch.ops.bitpack import words_to_bytes
@@ -1270,14 +1419,12 @@ def strip_phase(dev, card, kernels, cases):
         wide = x.itemsize > 1
         for index in indexes:
             name = f"{label} {index or 'no sidecar'}"
-            for fn in kernels.values():
-                fn.launches = 0
+            reset(kernels)
             keep = {}
             s = strip_encode(x, mode, index, dev, keep)
             enc = {k: kernels[k].launches for k in enc_path}
             nparts = len(keep.pop("parts"))  # the last push encodes all rows left as one strip
-            for fn in kernels.values():
-                fn.launches = 0
+            reset(kernels)
             out, path = strip_decode(s, dev)
             dec = {k: kernels[k].launches for k in dec_path}
             log(f"launch counts of the strips {name}: encode {enc}, decode {dec}")
@@ -1343,16 +1490,9 @@ def strip_phase(dev, card, kernels, cases):
             f"{p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
         del keep, parts, slab, base
         # peak device memory above what is allocated before the call
-        peaks = {}
-        for k, fn in (("strip encode", lambda: strip_encode(x, mode, index, dev)),
-                      ("whole encode", lambda: qt.encode(x, mode=mode, index=index,
-                                                         device=dev))):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            before = torch.cuda.memory_allocated()
-            fn()
-            torch.cuda.synchronize()
-            peaks[k] = torch.cuda.max_memory_allocated() - before
+        peaks = {"strip encode": peak_bytes(lambda: strip_encode(x, mode, index, dev)),
+                 "whole encode": peak_bytes(lambda: qt.encode(x, mode=mode, index=index,
+                                                              device=dev))}
         log(f"peak device memory {label}: strip encode {peaks['strip encode'] / 2**20:.1f} MiB, "
             f"whole encode {peaks['whole encode'] / 2**20:.1f} MiB "
             f"({peaks['whole encode'] / peaks['strip encode']:.2f}x) ({card})")
@@ -1360,9 +1500,8 @@ def strip_phase(dev, card, kernels, cases):
 
 
 def fixture_phase(dev):
-    """Phase 4a: every web fixture decoded to its raw bytes, the three best-mode
-    ones included, and every one that is not best mode re-encoded by the
-    port (the best encode is not ported)."""
+    """Phase 4a: every web fixture decoded to its raw bytes and re-encoded by
+    the port to its bytes, the three best-mode ones included."""
     from qb3_tpu_torch import api, container
     from qb3_tpu_torch.constants import Mode, is_best_mode
 
@@ -1370,7 +1509,7 @@ def fixture_phase(dev):
         text = f.read()
     cases = json.loads(text[text.index("["): text.rindex("]") + 1])
     check(len(cases) >= 20, f"only {len(cases)} web fixtures")
-    matched = decoded = 0
+    matched = decoded = best = 0
     for c in cases:
         stream = base64.b64decode(c["stream"])
         info = container.parse_headers(stream)
@@ -1380,10 +1519,6 @@ def fixture_phase(dev):
         check(dec.read_data().tobytes() == raw.tobytes(), f"fixture {c['name']}: decode differs")
         decoded += 1
         log(f"fixture {c['name']}: port decode ({dec.decode_path}) equals raw")
-        if is_best_mode(info.mode):
-            log(f"fixture {c['name']}: not re-encoded, the best encode is not ported "
-                "(ROADMAP.md Queue 1 item 12)")
-            continue
         mode = Mode.FTL if info.mode == Mode.STORED else info.mode
         got = api.encode(raw, mode=mode, quanta=info.quanta, coreband=info.cband,
                          index="ic" if info.index_chunked else False, device=dev)
@@ -1393,9 +1528,213 @@ def fixture_phase(dev):
                 "re-quantize to the stream's values")
             continue
         matched += 1
-    log(f"fixtures: {matched} of {len(cases)} streams re-encoded byte-exact, {decoded} "
-        "decoded to their raw bytes")
+        best += is_best_mode(info.mode)
+    log(f"fixtures: {matched} of {len(cases)} streams re-encoded byte-exact ({best} of them "
+        f"best mode), {decoded} decoded to their raw bytes")
     check(decoded == len(cases) == 20, f"{decoded} of {len(cases)} fixtures decoded")
+    check(best == 3, f"{best} of the 3 best-mode fixtures re-encoded to their bytes")
+
+
+def best_pins(dev, img):
+    """Phase 4c: the best headline (u8 512x512x3 CF_H) with "ib" and with
+    "ic" to BEST_HEADLINE_SHA256, and the Landsat sample decoded and encoded
+    again (CF_H, its core bands) to LANDSAT_ENCODE_SHA256, its own bytes."""
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import container
+    from qb3_tpu_torch.benchutil import (BEST_HEADLINE_SHA256, LANDSAT_ENCODE_SHA256,
+                                         LANDSAT_SAMPLE)
+    from qb3_tpu_torch.constants import Mode
+
+    for index, sig in ((True, "ib"), ("ic", "ic")):
+        sha = hashlib.sha256(qt.encode(img, mode=Mode.CF_H, index=index, device=dev)).hexdigest()
+        check(sha == BEST_HEADLINE_SHA256[sig],
+              f"best headline {sig} sha256 {sha} != {BEST_HEADLINE_SHA256[sig]}")
+    log("best headline 512x512x3 u8 CF_H ib and ic streams: sha256s match qb3_tpu")
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        sample = f.read()
+    info = container.parse_headers(sample)
+    again = qt.encode(qt.decode(sample, device=dev)[0], mode=info.mode, coreband=info.cband,
+                      device=dev)
+    sha = hashlib.sha256(again).hexdigest()
+    check(sha == LANDSAT_ENCODE_SHA256 and again == sample,
+          f"Landsat sample encoded again: sha256 {sha} != {LANDSAT_ENCODE_SHA256}")
+    log(f"Landsat sample 512x512x8 u16 encoded again in CF_H: sha256 {sha}, its own bytes, "
+        "matches qb3_tpu")
+
+
+def best_round_trips(dev, kernels, label, x) -> dict:
+    """x in CF_H with "ib", "ic" and no sidecar through the public encode and
+    decode, the launch counts set to 0 just before and read just after; each
+    decode takes the path its stream's sidecar names.  Returns the counts."""
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import container
+    from qb3_tpu_torch.constants import Mode
+
+    k5 = "wavefront8" if x.itemsize == 1 else "wavefront_wide"
+    reset(kernels)
+    paths = []
+    for index in (True, "ic", False):
+        s = qt.encode(x, mode=Mode.CF_H, index=index, device=dev)
+        info = container.parse_headers(s)
+        d = qt.Decoder(s, device=dev)
+        check(np.array_equal(d.read_data(), x), f"best {label} {index}: round trip")
+        want = ("ib" if info.index_best else "ic-best" if info.index_chunked
+                else "native-walk")
+        check(info.mode == Mode.CF_H and d.decode_path == want,
+              f"best {label} {index}: mode {info.mode}, decode path {d.decode_path}")
+        paths.append(f"{index or 'no sidecar'}: {d.decode_path}, ratio {len(s) / x.nbytes:.4f}")
+    counts = {k: kernels[k].launches for k in ("pack_groups_chunked", "gather_slabs", k5)}
+    log(f"lossless best {label} CF_H ({'; '.join(paths)}); launch counts {counts}")
+    check(counts["pack_groups_chunked"] == 3 and all(counts.values()),
+          f"best {label}: a kernel of the path was not launched ({counts})")
+    return counts
+
+
+def best_phase(dev, card, kernels, imgs: dict, tiles, elevation) -> dict:
+    """Phase 5, the best modes: CF_H round trips with "ib", "ic" and no
+    sidecar of u8 512x512x3 and u64 1024x1024x1 rasters, a CF_H batch of
+    BATCH u8 512x512x3 tiles with "ib" sidecars, and the u16 4096x4096x1
+    elevation raster through StripEncoder / StripDecoder, each with its
+    launch counts set to 0 just before and read just after; device-resident
+    and host-to-host MB/s, the encode split into phase A and K1 and the
+    "ic"-best decode into its walk (plain PyTorch on the card) and
+    reconstruct, the batch's and the strips' peak device memory.  Returns
+    the launch counts by BEST_K1 entry and by kernel."""
+    import torch
+
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import api, container
+    from qb3_tpu_torch.benchutil import host_seconds, sustained
+    from qb3_tpu_torch.constants import HILBERT, Mode
+    from qb3_tpu_torch.ops import bitpack
+    from qb3_tpu_torch.ops.decode import reconstruct
+    from qb3_tpu_torch.ops.decode_chunked import decode_chunked_best, parse_ic_best
+    from qb3_tpu_torch.ops.encode_best import encode_best_blocks
+    from qb3_tpu_torch.ops.pack_cuda import pack_groups_chunked
+
+    counts = {label: best_round_trips(dev, kernels, label, x) for label, x in imgs.items()}
+    for label, x in imgs.items():
+        (h, w, nb), tb = x.shape, 8 * x.itemsize
+        mb = x.nbytes / 1e6
+        cband = tuple(api.default_cband(nb))
+        n_words = api.stream_words(w, h, nb, api.DT_FROM_NP[x.dtype])
+        zero = torch.zeros(nb, dtype=torch.int64, device=dev)
+        xd = api.to_carrier(x, dev)
+        enc = (xd, zero, zero, zero, HILBERT, cband, tb)
+        codes, lens = encode_best_blocks(*enc)[:2]
+        bound = bitpack.group_bits_bound(tb, best=True)
+        t_enc = sustained(lambda: api.best_encode(*enc, n_words), 10)
+        t_pa = sustained(lambda: encode_best_blocks(*enc), 10)
+        t_k1 = sustained(lambda: pack_groups_chunked(codes, lens, n_words, bound), 20)
+        log(f"device encode best {label} CF_H: {mb / t_enc:.2f} MB/s ({t_enc * 1e3:.4f} ms) = "
+            f"phase A {t_pa * 1e3:.4f} ms + K1 {t_k1 * 1e3:.4f} ms ({card})")
+        p = profiled(lambda: api.best_encode(*enc, n_words), 3)
+        log(f"profile best encode {label}: wall {p['wall_ms']:.4f} ms, device busy "
+            f"{p['busy_ms']:.4f} ms, idle {p['idle']:.3f}, {p['ops']:.0f} device ops, top "
+            f"{p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
+        del codes, lens
+        s = qt.encode(x, mode=Mode.CF_H, index="ic", device=dev)
+        info = container.parse_headers(s)
+        data = s[info.data_offset:]
+        nblocks = (h // 4) * (w // 4)
+        meta = parse_ic_best(info.index_chunked, nblocks, nb) if info.index_chunked else None
+        if meta is not None:
+            inp = api.ic_best_inputs(api.padded_words(data), meta, dev)
+            args = (inp["words32"], inp["starts"], inp["entry"], inp["pcf"], inp["k"],
+                    nblocks, nb, tb)
+            g = decode_chunked_best(*args)
+            rec = (g.reshape(nblocks, nb, 16), zero, h, w, nb, HILBERT, cband, tb)
+            check(np.array_equal(api.from_carrier(reconstruct(*rec)[0], x.itemsize), x),
+                  f"best {label}: device ic-best decode")
+            t_walk = sustained(lambda: decode_chunked_best(*args), 3)
+            t_rec = sustained(lambda: reconstruct(*rec), 20)
+            log(f"device decode ic-best {label}: {mb / (t_walk + t_rec):.2f} MB/s = the walk "
+                f"{t_walk * 1e3:.4f} ms ({meta[1].size} chunks, {meta[0]} blocks x {nb} bands "
+                f"a chunk, one step of PyTorch ops a group) + reconstruct {t_rec * 1e3:.4f} ms "
+                f"({card})")
+            del inp, args, g, rec
+        rates = {}
+        for index in (True, "ic", False):
+            st = qt.encode(x, mode=Mode.CF_H, index=index, device=dev)
+            name = f"{index or 'no sidecar'}"
+            rates[f"encode {name}"] = mb / host_seconds(
+                lambda index=index: qt.encode(x, mode=Mode.CF_H, index=index, device=dev), 3)
+            d = qt.Decoder(st, device=dev)
+            d.read_data()
+            rates[f"decode {name} ({d.decode_path})"] = mb / host_seconds(
+                lambda st=st: qt.decode(st, device=dev), 3)
+        log(f"host to host best {label} CF_H: " + ", ".join(
+            f"{k} {v:.2f} MB/s" for k, v in rates.items()) + f" ({card})")
+        del xd, enc
+
+    # the batch: encode_tiles / decode_tiles, launch counts, peak memory
+    reset(kernels)
+    peak = {"encode": peak_bytes(lambda: qt.encode_tiles(tiles, mode=Mode.CF_H, index=True,
+                                                         device=dev))}
+    enc_counts = {k: kernels[k].launches for k in ("pack_groups_chunked",)}
+    streams = qt.encode_tiles(tiles, mode=Mode.CF_H, index=True, device=dev)
+    reset(kernels)
+    out = {}
+    peak["decode"] = peak_bytes(lambda: out.update(t=qt.decode_tiles(streams, device=dev)))
+    dec_counts = {k: kernels[k].launches for k in ("gather_slabs", "wavefront8")}
+    log(f"launch counts of the best batch{BATCH}: encode {enc_counts}, decode {dec_counts}")
+    check(enc_counts == {"pack_groups_chunked": 1}
+          and dec_counts == {"gather_slabs": 1, "wavefront8": 1},
+          "best batch: the launches of the encode and the decode")
+    check(np.array_equal(out["t"], tiles), "best batch round trip")
+    check(streams[0] == qt.encode(tiles[0], mode=Mode.CF_H, index=True, device=dev)
+          and container.parse_headers(streams[0]).index_best is not None,
+          "best batch: a tile's stream differs from its single encode")
+    mb = tiles.nbytes / 1e6
+    t_e = host_seconds(lambda: qt.encode_tiles(tiles, mode=Mode.CF_H, index=True, device=dev), 2)
+    t_d = host_seconds(lambda: qt.decode_tiles(streams, device=dev), 2)
+    log(f"best batch{BATCH} u8 512x512x3 CF_H ib, host to host: encode {mb / t_e:.2f} MB/s "
+        f"({t_e * 1e3:.1f} ms), decode {mb / t_d:.2f} MB/s ({t_d * 1e3:.1f} ms); peak device "
+        f"memory encode {peak['encode'] / 2**30:.2f} GiB, decode "
+        f"{peak['decode'] / 2**30:.2f} GiB; ratio {sum(map(len, streams)) / tiles.nbytes:.4f} "
+        f"({card})")
+    del streams, out
+
+    # the strips: the u16 elevation raster in STRIP_ROWS-row strips
+    x = elevation
+    nstrips = -(-x.shape[0] // STRIP_ROWS)
+    reset(kernels)
+    keep = {}
+    s = strip_encode(x, Mode.CF_H, True, dev, keep)
+    nparts = len(keep.pop("parts"))
+    enc = {k: kernels[k].launches
+           for k in ("place_slabs", "pack_groups_chunked", "encode_pack_image")}
+    reset(kernels)
+    rows, path = strip_decode(s, dev)
+    dec = {k: kernels[k].launches for k in ("gather_slabs", "wavefront8", "wavefront_wide")}
+    log(f"launch counts of the best strips u16 4096x4096x1 CF_H ib: encode {enc}, decode {dec}")
+    check(enc == {"place_slabs": 1, "pack_groups_chunked": nparts, "encode_pack_image": 0},
+          "best strips: the encode's launches")
+    check(dec == {"gather_slabs": nstrips, "wavefront8": 0, "wavefront_wide": nstrips},
+          "best strips: the decode's launches")
+    check(np.array_equal(rows, x) and path == "native-walk", f"best strips: decode ({path})")
+    whole = qt.encode(x, mode=Mode.CF_H, index=True, device=dev)
+    check(s == whole, "best strips: stream differs from the whole-image encode")
+    mb = x.nbytes / 1e6
+    t = {"strip encode": host_seconds(lambda: strip_encode(x, Mode.CF_H, True, dev), 2),
+         "whole encode": host_seconds(
+             lambda: qt.encode(x, mode=Mode.CF_H, index=True, device=dev), 2),
+         "strip decode": host_seconds(lambda: strip_decode(s, dev), 2),
+         "whole decode (ib)": host_seconds(lambda: qt.decode(s, device=dev), 2)}
+    peaks = {"strip": peak_bytes(lambda: strip_encode(x, Mode.CF_H, True, dev)),
+             "whole": peak_bytes(lambda: qt.encode(x, mode=Mode.CF_H, index=True,
+                                                   device=dev))}
+    log(f"best strips u16 4096x4096x1 CF_H ib: {len(s)} bytes (ratio {len(s) / x.nbytes:.4f}), "
+        f"equal to the whole-image encode, decoded losslessly in {STRIP_ROWS}-row reads; host "
+        f"to host " + ", ".join(f"{k} {mb / v:.2f} MB/s ({v * 1e3:.1f} ms)" for k, v in t.items())
+        + f"; peak device memory strip encode {peaks['strip'] / 2**20:.1f} MiB, whole encode "
+        f"{peaks['whole'] / 2**20:.1f} MiB ({card})")
+    k1 = {name: counts[label]["pack_groups_chunked"] for name, label in BEST_K1.items()}
+    k1["pack_groups_chunked best S=27"] += enc_counts["pack_groups_chunked"] + nparts
+    launches = {k: sum(c.get(k, 0) for c in counts.values()) + dec_counts.get(k, 0)
+                + dec.get(k, 0) for k in ("gather_slabs", "wavefront8", "wavefront_wide")}
+    launches["place_slabs"] = enc["place_slabs"]
+    return k1, launches
 
 
 def walk_phase(dev, card, img, wide_imgs, kernels, ic_stream, ix_stream):
@@ -1421,8 +1760,7 @@ def walk_phase(dev, card, img, wide_imgs, kernels, ic_stream, ix_stream):
                   "u8 512x512x3 no-data RLE_H": (nodata, Mode.RLE_H),
                   **{label: (x, Mode.FTL) for label, x in wide_imgs.items()}}
     walk_path = ("gather_slabs", "wavefront8", "wavefront_wide")
-    for fn in kernels.values():
-        fn.launches = 0
+    reset(kernels)
     walk_streams = {}
     for label, (x, mode) in walk_cases.items():
         s = qt.encode(x, mode=mode, device=dev)
@@ -1501,7 +1839,7 @@ def main() -> int:
     from qb3_tpu_torch.benchutil import (HEADLINE_SHA256, WIDE_IMAGES, WIDE_SHA256,
                                          headline_image, host_seconds, sustained,
                                          wide_image)
-    from qb3_tpu_torch.constants import HILBERT
+    from qb3_tpu_torch.constants import HILBERT, Mode
     from qb3_tpu_torch.ops.chunkwalk_cuda import chunkwalk8
     from qb3_tpu_torch.ops.decode import decode_indexed_narrow, reconstruct, reconstruct_batch
     from qb3_tpu_torch.ops.encode_cuda import encode_pack_image, image_pack_args
@@ -1541,15 +1879,23 @@ def main() -> int:
     ix_res, ix_streams = ix_kernel_phase(dev, card, cases)
     kres.update(ix_res)
     kres.update(k8_phase(dev, card))
-    kres.update(k7_phase(dev, card, img, wide_image("u64 1024x1024x1")))
-    for name, err in {**k5_phase(dev, card), **walk_edge_phase(dev, card)}.items():
+    best_streams = best_ib_streams(dev, tiles)
+    kres.update(k7_phase(dev, card, img, wide_image("u64 1024x1024x1"), best_streams))
+    for name, err in {**k5_phase(dev, card, best_streams),
+                      **walk_edge_phase(dev, card)}.items():
         kres[name] = (max(err, kres[name][0]),) + kres[name][1:]
+    del best_streams
     scases = strip_cases()
-    kres.update(k6_phase(dev, card, scases["u8 4096x4096x3 FTL"][0]))
+    kres.update(k6_phase(dev, card, {
+        "u8 4096x4096x3 FTL": (scases["u8 4096x4096x3 FTL"][0], Mode.FTL),
+        "u16 4096x4096x1 CF_H": (scases["u16 4096x4096x1 BASE_H"][0], Mode.CF_H)}))
     kres.update(probe_phase(dev, card))
+    best_imgs = {"u8 512x512x3": img, "u64 1024x1024x1": wide_image("u64 1024x1024x1")}
+    kres.update(k1_best_phase(dev, card, best_imgs))
 
     log("# phase 4: golden bytes")
     fixture_phase(dev)
+    best_pins(dev, img)
     stream = qt.encode(img, index="ic", device=dev)
     sha = hashlib.sha256(stream).hexdigest()
     check(sha == HEADLINE_SHA256, f"headline sha256 {sha} != {HEADLINE_SHA256}")
@@ -1572,8 +1918,7 @@ def main() -> int:
     log("# phase 5: main paths")
     ic_path = ("pack_groups_chunked", "extract_windows", "chunkwalk8")
     ix_path = ("pack_groups_chunked", "wavefront_fused", "wavefront8", "wavefront_wide")
-    for fn in kernels.values():
-        fn.launches = 0
+    reset(kernels)
     stream = qt.encode(img, index="ic", device=dev)
     dec = qt.Decoder(stream, device=dev)
     check(np.array_equal(dec.read_data(), img) and dec.decode_path == "ic",
@@ -1596,8 +1941,7 @@ def main() -> int:
     log(f"lossless ic: 512x512x3 u8 single (ratio {len(stream) / img.nbytes:.4f}), "
         f"batch of {BATCH}, " + ", ".join(f"{k} (ratio {v:.4f})" for k, v in wide.items()))
 
-    for fn in kernels.values():
-        fn.launches = 0
+    reset(kernels)
     for label, x in cases.items():
         if x.shape[0] == 1:
             s = qt.encode(x[0], index=True, device=dev)
@@ -1626,8 +1970,7 @@ def main() -> int:
     # the public encode of the wide shapes (the image-layout encode): the
     # "ix" streams are qb3_tpu's (phase 4's sha256s), both sidecars round-trip,
     # through K8 and never K1
-    for fn in kernels.values():
-        fn.launches = 0
+    reset(kernels)
     for label, x in wide_imgs.items():
         for index in (True, "ic"):
             s = qt.encode(x, index=index, device=dev)
@@ -1760,11 +2103,16 @@ def main() -> int:
     for k in ("gather_slabs", "wavefront8", "wavefront_wide"):  # K5 also ran on the ix path
         launches[k] = launches.get(k, 0) + walked[k] + stripped[k]
     launches["place_slabs"] = stripped["place_slabs"]
+    best_k1, best_launches = best_phase(dev, card, kernels, best_imgs, tiles,
+                                        scases["u16 4096x4096x1 BASE_H"][0])
+    for k, n in best_launches.items():
+        launches[k] += n
     landsat_split(dev, card)
     launches.update(probe_main_path(kernels))
 
-    line = []
-    for name in KERNELS:
+    def entry(name: str, kernel: str, n: int) -> dict:
+        """The kernels line's entry of kres[name], a run of KERNELS[kernel]
+        launched n times on the main path."""
         # device ms (profiled: K1-K4, K6-K8, P1-P7; K1, K2, K4 and K8 all they issue) and
         # the library call's, else None
         err, ms, plain, need, lib, dev_ms, lib_dev = (*kres[name], None, None)[:7]
@@ -1772,12 +2120,16 @@ def main() -> int:
         # (the floor where it is larger than both)
         bms, term = bound(need)
         t_bytes, t_ops = work_ms(need)
-        line.append({"name": name, "route": "cuda", "source": KERNELS[name][0],
-                     "replaces": KERNELS[name][1], "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "bound_term": term, "library_ms": lib, "device_ms": dev_ms,
-                     "library_device_ms": lib_dev, "floor_ms": FLOOR_MS})
+        return {"name": name, "route": "cuda", "source": KERNELS[kernel][0],
+                "replaces": KERNELS[kernel][1], "launches": n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_term": term, "library_ms": lib, "device_ms": dev_ms,
+                "library_device_ms": lib_dev, "floor_ms": FLOOR_MS}
+
+    line = [entry(name, name, launches[name]) for name in KERNELS]
+    # K1 at the best modes' symbol counts
+    line += [entry(name, "pack_groups_chunked", best_k1[name]) for name in BEST_K1]
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

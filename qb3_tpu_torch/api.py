@@ -14,16 +14,17 @@ image repacking, container framing, the RLE0 post-pass and the fallbacks
 multiples of 4 take the image-layout phase A (ops/encode_image.py) and K8
 (ops/encode_cuda.py) instead, to the same bytes (takes_fused).
 
-Slices covered: the encode of FTL, BASE_H and BASE_Z (and their RLE forms)
-with no sidecar, the self-contained "ic" sidecar or the "ix" sidecar
-(per-group bit lengths); the Decoder decodes stored, "ic" and "ix" streams,
-best-mode streams (CF, CF_H and their RLE forms) with the "ib" sidecar
-(per-group lengths and decode metadata), and streams of any mode without a
-usable sidecar through the serial walk on the host (native.py, or
-offsets.py where the C++ walk cannot be built), K7 and K5 on the device.
-The best encode and the decode of best streams' "ic" sidecar raise
-NotImplementedError naming the ROADMAP.md item that ports them; nothing
-runs on another device instead.
+Every mode is covered: the encode of FTL, BASE_H and BASE_Z with no
+sidecar, the self-contained "ic" sidecar or the "ix" sidecar (per-group bit
+lengths), and of the best modes CF and CF_H (phase A in ops/encode_best.py,
+then K1) with no sidecar, the "ib" sidecar (per-group lengths and decode
+metadata) or the best modes' "ic" sidecar, each with its RLE form; the
+Decoder decodes stored, "ic" and "ix" streams, best-mode streams with the
+"ib" sidecar (K7 and K5) or their "ic" sidecar (the chunk walk of
+ops/decode_chunked.decode_chunked_best, plain PyTorch on the device), and
+streams of any mode without a usable sidecar through the serial walk on the
+host (native.py, or offsets.py where the C++ walk cannot be built), K7 and
+K5 on the device.
 """
 
 from __future__ import annotations
@@ -53,9 +54,11 @@ from .ops.chunkwalk_cuda import ic_walk_params
 from .offsets import KIND_CF, KIND_CF0, parse_offsets
 from .ops.decode import (_NREG_IX, K5_KIND, decode_groups, decode_indexed_narrow,
                          payload_words, reconstruct)
-from .ops.decode_chunked import (IC_DEFAULT_K, chunk_spans, decode_chunked_auto,
-                                 pack_ic, parse_ic, parse_ic_best)
+from .ops.decode_chunked import (IC_DEFAULT_K, chunk_spans, chunk_spans_best,
+                                 decode_chunked_auto, decode_chunked_best, pack_ic,
+                                 pack_ic_best, parse_ic, parse_ic_best)
 from .ops.encode import encode_fast_blocks
+from .ops.encode_best import encode_best_blocks
 from .ops.encode_cuda import encode_pack_image, image_pack_args
 from .ops.encode_image import phase_a_image
 from .ops.fusedwin_cuda import ix_window_R
@@ -71,20 +74,9 @@ UNSIGNED = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 _TORCH_SIGNED = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _NP_SIGNED = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 
-_NOT_PORTED = {
-    "best": ("ROADMAP.md Queue 1 item 12 (best mode's rest: the best encode and its ib / "
-             "ic-best sidecars, the ic-best decode, the batch best decode, the strips' "
-             "best modes)"),
-}
-
-
 # the mode an RLE form encodes in before its RLE0 post-pass
 RLE_BASE = {Mode.RLE: Mode.BASE_Z, Mode.CF_RLE: Mode.CF,
             Mode.RLE_H: Mode.BASE_H, Mode.CF_RLE_H: Mode.CF_H}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {_NOT_PORTED[what]}")
 
 
 def default_cband(nbands: int) -> list[int]:
@@ -226,6 +218,37 @@ def fast_encode(img, entry_prev, entry_runbits, order: int, cband: tuple,
     return words, total, exit_prev, exit_runbits, glen, rung
 
 
+def best_encode(img, entry_prev, entry_runbits, entry_cf, order: int, cband: tuple,
+                tbits: int, n_words: int):
+    """Device-resident best encode (CF / CF_H): phase A (encode_best_blocks),
+    then the K1 pack at the best modes' symbol counts (qb3_tpu's
+    _best_kernel).
+
+    img (..., H, W, C) int64 carrier; returns (words (..., n_words) int32,
+    total bits, exit_prev, exit_runbits, exit_cf, glen, meta16, cfv,
+    post_runbits, pcf_in), the last four as encode_best_blocks gives them."""
+    (codes, lens, exit_prev, exit_runbits, exit_cf, meta16, cfv, post_run,
+     pcf_in) = encode_best_blocks(img, entry_prev, entry_runbits, entry_cf, order, cband,
+                                  tbits)
+    words, total, glen = pack_groups_auto(codes, lens, n_words,
+                                          group_bits_bound(tbits, best=True))
+    return (words, total, exit_prev, exit_runbits, exit_cf, glen, meta16, cfv, post_run,
+            pcf_in)
+
+
+def best_sidecar(glens: np.ndarray, meta16: np.ndarray, cfv: np.ndarray) -> bytes | None:
+    """The "ib" sidecar: per group a u16 bit length and a u16 meta (kind |
+    vrung << 3 | prefix_len << 9), then a u16 biased CF (cf - 2) for each CF
+    / CF0 group, little-endian in group order; None when a CF passes 16 bits
+    (the decoder then walks the stream)."""
+    kind = meta16 & 7
+    cfm = cfv[(kind == KIND_CF) | (kind == KIND_CF0)]
+    if cfm.size and int(cfm.max()) > 0xFFFF:
+        return None
+    return (glens.astype("<u2").tobytes() + meta16.astype("<u2").tobytes()
+            + cfm.astype("<u2").tobytes())
+
+
 def takes_fused(tbits: int, h: int, w: int) -> bool:
     """Whether one image encodes through fused_encode: u16, u32 and u64
     images whose sides are multiples of 4 (K8's domain).  u8 images, and
@@ -266,18 +289,20 @@ class Encoder:
         self.stride = 0
         self.cband = default_cband(bands)
         self.error = Error.OK
-        # decode sidecar: False, True/"ix" (per-group bit lengths, u16 each)
-        # or "ic" (chunked anchors, ~1%)
+        # decode sidecar: False, True/"ix" (per-group bit lengths, u16 each;
+        # "ib" in the best modes) or "ic" (chunked anchors, ~1%)
         self.with_index = False
         self.index_chunk_blocks = 0  # 0 = IC_DEFAULT_K
         self._last_glens = None
         self._last_rungs = None
+        self._last_best = None  # (meta16, cfv, pcf_in) of a best encode, on the device
         self.reset()
 
     def reset(self):
         """qb3_reset_encoder: clear persisted band state."""
         self.band_prev = np.zeros(self.nbands, dtype=np.uint64)
         self.band_runbits = np.zeros(self.nbands, dtype=np.int32)
+        self.band_cf = np.zeros(self.nbands, dtype=np.uint64)
         self.error = Error.OK
 
     def set_mode(self, mode: int) -> Mode:
@@ -352,8 +377,6 @@ class Encoder:
 
         user_mode = self.mode
         mode = RLE_BASE.get(user_mode, user_mode)
-        if not is_fast_mode(mode):
-            raise not_ported("best")
 
         work = src
         if self.quanta >= 2:
@@ -364,9 +387,15 @@ class Encoder:
             uns = repack_small(uns)
 
         entry_runbits = self.band_runbits.copy()
+        entry_cf = self.band_cf.copy()
         payload, state = self._encode_payload(uns, mode)
         index, index_sig = None, b"ix"
-        if self.with_index == "ic":
+        if self.with_index and is_best_mode(mode):
+            if self.with_index == "ic":
+                index, index_sig = self._chunked_sidecar_best(entry_runbits, entry_cf), b"ic"
+            if index is None:
+                index, index_sig = self._best_sidecar(), b"ib"
+        elif self.with_index == "ic":
             index, index_sig = self._chunked_sidecar(entry_runbits), b"ic"
         elif self.with_index:
             index = self._last_glens.astype("<u2").tobytes()
@@ -398,22 +427,35 @@ class Encoder:
         """Phase A and the pack of one (H, W, C) unsigned raster from the
         persisted band state, on the device -> (the stream words used, a view
         of the first ceil(total / 32) words on the device; total bits; the
-        exit (prev, runbits) on the host; glen; rung)."""
+        exit (prev, runbits, cf or None) on the host; glen; rung, the
+        decoder-observable runbits after each block; in the best modes
+        (meta16, cfv, pcf_in) on the device, else None)."""
         h, w, nb = uns.shape
-        tbits = uns.dtype.itemsize * 8
+        size = uns.dtype.itemsize
+        tbits = size * 8
         n_words = stream_words(w, h, nb, self.dtype)
-        prev = to_carrier(self.band_prev.astype(uns.dtype), self.device)
-        runbits = torch.from_numpy(self.band_runbits).to(self.device)
-        words, total, xprev, xrun, glen, rung = (
-            fused_encode if takes_fused(tbits, h, w) else fast_encode)(
-            to_carrier(uns, self.device), prev, runbits, self.order or HILBERT,
-            tuple(self.cband), mode == Mode.FTL, tbits, n_words)
-        state = (from_carrier(xprev, uns.dtype.itemsize), xrun.cpu().numpy())
+        args = (to_carrier(uns, self.device),
+                to_carrier(self.band_prev.astype(uns.dtype), self.device),
+                torch.from_numpy(self.band_runbits).to(self.device))
+        order, cband = self.order or HILBERT, tuple(self.cband)
+        if is_best_mode(mode):
+            cf = to_carrier(self.band_cf.astype(uns.dtype), self.device)
+            (words, total, xprev, xrun, xcf, glen, meta16, cfv, rung,
+             pcf_in) = best_encode(*args, cf, order, cband, tbits, n_words)
+            best, xcf = (meta16, cfv, pcf_in), from_carrier(xcf, size)
+        elif is_fast_mode(mode):
+            words, total, xprev, xrun, glen, rung = (
+                fused_encode if takes_fused(tbits, h, w) else fast_encode)(
+                *args, order, cband, mode == Mode.FTL, tbits, n_words)
+            best = xcf = None
+        else:
+            raise ValueError(f"unsupported mode {mode}")
+        state = (from_carrier(xprev, size), xrun.cpu().numpy(), xcf)
         total = int(total)
-        return words[: (total + 31) // 32], total, state, glen, rung
+        return words[: (total + 31) // 32], total, state, glen, rung, best
 
     def _encode_payload(self, uns: np.ndarray, mode: Mode):
-        used, total, state, glen, rung = self._encode_words(uns, mode)
+        used, total, state, glen, rung, self._last_best = self._encode_words(uns, mode)
         self._last_rungs = rung.cpu().numpy()
         self._last_glens = glen.cpu().numpy()
         return words_to_bytes(used.cpu().numpy().view(np.uint32), total), state
@@ -428,10 +470,34 @@ class Encoder:
             return None  # int32 bit cursors in the device walk
         return pack_ic(spans, entry, k)
 
+    def _best_sidecar(self) -> bytes | None:
+        """"ib" chunk payload of the last best encode (best_sidecar)."""
+        meta16, cfv, _ = self._last_best
+        return best_sidecar(self._last_glens, meta16.cpu().numpy(), cfv.cpu().numpy())
+
+    def _chunked_sidecar_best(self, entry_runbits: np.ndarray,
+                              entry_cf: np.ndarray) -> bytes | None:
+        """"ic" chunk payload of the last best encode: spans + entry rungs +
+        entry pcf per band (pack_ic_best); None when a CF passes 16 bits or
+        the stream is too long for int32 cursors, and the "ib" sidecar is
+        written instead."""
+        k = self.index_chunk_blocks or IC_DEFAULT_K
+        pieces = chunk_spans_best(self._last_glens.astype(np.int64), self._last_rungs,
+                                  self._last_best[2].cpu().numpy(),
+                                  entry_runbits, entry_cf.astype(np.int64), k)
+        if pieces is None:
+            return None
+        spans, entry, pcf = pieces
+        if int(spans.sum()) >= 1 << 31:
+            return None
+        return pack_ic_best(spans, entry, pcf, k)
+
     def _commit_state(self, state):
-        xprev, xrun = state
+        xprev, xrun, xcf = state
         self.band_prev = xprev.astype(np.uint64)
         self.band_runbits = xrun.astype(np.int32)
+        if xcf is not None:
+            self.band_cf = xcf.astype(np.uint64)
 
 
 # ------------------------------------------------------------------- decoder
@@ -473,6 +539,28 @@ def ic_decode(inp: dict, nblocks: int, nb: int, h: int, w: int, order: int,
     zero = torch.zeros(nb, dtype=torch.int64, device=g.device)
     img, _ = reconstruct(g.reshape(nblocks, nb, B2), zero, h, w, nb, order,
                          cband, tbits)
+    return img
+
+
+def ic_best_inputs(words: np.ndarray, meta: tuple, device) -> dict:
+    """Device inputs of the best modes' "ic" decode of one stream: the
+    padded stream words (padded_words) and parse_ic_best's result."""
+    k, starts, entry, pcf, _ = meta
+    return dict(words32=torch.from_numpy(words.view(np.int32)).to(device),
+                starts=torch.from_numpy(starts.astype(np.int32)).to(device),
+                entry=torch.from_numpy(entry).to(device),
+                pcf=torch.from_numpy(pcf).to(device), k=k)
+
+
+def ic_best_decode(inp: dict, nblocks: int, nb: int, h: int, w: int, order: int,
+                   cband: tuple, tbits: int):
+    """Device-resident "ic" decode of one best-mode image (inputs from
+    ic_best_inputs; qb3_tpu's _decode_kernel_chunked_best): the chunk walk,
+    then reconstruct -> (H, W, C) int64 carrier."""
+    g = decode_chunked_best(inp["words32"], inp["starts"], inp["entry"], inp["pcf"],
+                            inp["k"], nblocks, nb, tbits)
+    zero = torch.zeros(nb, dtype=torch.int64, device=g.device)
+    img, _ = reconstruct(g.reshape(nblocks, nb, B2), zero, h, w, nb, order, cband, tbits)
     return img
 
 
@@ -583,8 +671,8 @@ class Decoder:
     decode runs on `device`.
 
     After read_data, `decode_path` records which decode engine ran
-    ("stored", "ic", "ix", or for streams without a usable sidecar
-    "native-walk" or "python-walk", as in qb3_tpu); `failed` mirrors the
+    ("stored", "ic", "ic-best", "ix", "ib", or for streams without a usable
+    sidecar "native-walk" or "python-walk", as in qb3_tpu); `failed` mirrors the
     reference's decode failure flag when read_data(partial=True) returned
     best-effort output.
     """
@@ -675,9 +763,14 @@ class Decoder:
                 self.decode_path = "ic"
                 return self._end_check(from_carrier(img, tbits // 8),
                                        len(data) * 8 - meta[3])
-        if info.index_chunked is not None and best and \
-                parse_ic_best(info.index_chunked, nblocks, nb) is not None:
-            raise not_ported("best")  # qb3_tpu's "ic-best" branch
+        if info.index_chunked is not None and best:
+            meta = parse_ic_best(info.index_chunked, nblocks, nb)
+            if meta is not None:
+                img = ic_best_decode(ic_best_inputs(padded_words(data), meta, self.device),
+                                     nblocks, nb, h, w, order, cband, tbits)
+                self.decode_path = "ic-best"
+                return self._end_check(from_carrier(img, tbits // 8),
+                                       len(data) * 8 - meta[4])
 
         glens = None
         if info.index is not None and fast:

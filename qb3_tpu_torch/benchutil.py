@@ -24,6 +24,18 @@ HEADLINE_SHA256 = "0d9874e5145ee36edf488c1e5525407266c2f652f42903571313940e791b0
 # re-derived from both packages by tests/test_torch_walk.py
 LANDSAT_SAMPLE = "web/sample_landsat8.qb3"
 LANDSAT_SHA256 = "ae926ac98a0bcc7b89b9d83f3c774597d283f10df448bb4a77f90c61aa1ba2a9"
+# sha256 of the Landsat sample's array encoded again in its mode (CF_H) and
+# core bands: computed with qb3_tpu.encode (the sample's own bytes) and
+# re-derived from both packages by tests/test_torch_best.py
+LANDSAT_ENCODE_SHA256 = "a43370c26b9aeeb264b282f9f7a969f16ed60daffd49ef2c0eace3cf241aa2e9"
+
+# sha256 of encode(headline_image(), mode=Mode.CF_H, index=...) with the
+# best modes' two sidecars, "ib" (index=True) and "ic": computed with
+# qb3_tpu.encode and re-derived from both packages by tests/test_torch_best.py
+BEST_HEADLINE_SHA256 = {
+    "ib": "47642b825693b022de47c71add157f047440e53496b5df0b9ceb2fc95816280b",
+    "ic": "5c868d45d7f100fafbd73911d87020d88ea9074745d7c30786b5e41f32dbd1e8",
+}
 
 # the wide rasters of the bench rows ftl-u16, ftl-u16x8-landsat, ftl-u32 and
 # ftl-u64: label -> headline_image arguments (h, w, bands, seed, dtype)

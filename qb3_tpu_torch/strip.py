@@ -11,22 +11,22 @@ qb3_tpu/strip.py.
     while (rows := sd.read(64)) is not None:
         consume(rows)                # rows arrive in order, dequantized
 
-The band state (prev value, rung history) persists across strips, as in
-the reference's strip-wise sub-encoding of quantized images
+The band state (prev value, rung history, previous CF) persists across
+strips, as in the reference's strip-wise sub-encoding of quantized images
 (QB3encode.cpp:405-455).  Each strip encodes on the device through the
-port's encode (phase A + K1, or the image-layout phase A + K8 where
-api.takes_fused says so); its words stay on the device, trimmed to the
-strip's bit total, and finish() stitches them once with K6
-(stitch.stitch_words_device) and copies the stream to the host once, where
-qb3_tpu copies every strip to the host and stitches there.  The stored-raw
-fallback for incompressible images is not available in streaming mode
-(the raster is gone by finish()); quanta, the RLE0 post-pass, core bands,
-scan order and the "ix" / "ic" sidecars match Encoder.  The decoder walks
-the stream strip by strip on the host (the C++ walk, or the Python one) and
-decodes each strip with K7 + K5 and reconstruct on the device.  Best modes
-raise NotImplementedError in both, naming ROADMAP.md item 12 (StripEncoder
-as the best encode does, StripDecoder for want of the carried previous CF;
-api.Decoder decodes whole best-mode streams).
+port's encode (phase A + K1, the best modes' phase A + K1, or the
+image-layout phase A + K8 where api.takes_fused says so); its words stay on
+the device, trimmed to the strip's bit total, and finish() stitches them
+once with K6 (stitch.stitch_words_device) and copies the stream to the host
+once, where qb3_tpu copies every strip to the host and stitches there.  The
+stored-raw fallback for incompressible images is not available in streaming
+mode (the raster is gone by finish()); quanta, the RLE0 post-pass, core
+bands, scan order and the sidecars match qb3_tpu's StripEncoder: "ix" and
+"ic" in the fast modes, "ib" in the best modes (for index True or "ic"),
+assembled from the strips' decode metadata.  The decoder walks the stream
+strip by strip on the host (the C++ walk, or the Python one), carrying the
+per-band previous CF, and decodes each strip with K7 + K5 and reconstruct
+on the device.
 """
 
 from __future__ import annotations
@@ -35,10 +35,11 @@ import numpy as np
 import torch
 
 from . import container, rle
-from .api import (NP_FROM_DT, RLE_BASE, UNSIGNED, Decoder, Encoder, dequantize,
-                  from_carrier, group_inputs, not_ported, padded_words, quantize,
+from .api import (NP_FROM_DT, RLE_BASE, UNSIGNED, Decoder, Encoder, best_sidecar,
+                  dequantize, from_carrier, group_inputs, padded_words, quantize,
                   walk_offsets)
-from .constants import B, B2, HILBERT, DType, Mode, is_best_mode, needs_rle
+from .constants import B, B2, HILBERT, DType, Mode, needs_rle
+from .offsets import KIND_CF, KIND_CF0
 from .errors import QB3DataError, QB3ShapeError
 from .ops.bitpack import words_to_bytes
 from .ops.decode import decode_groups, reconstruct
@@ -63,8 +64,6 @@ class StripEncoder:
             self._enc.set_coreband(coreband)
         self.user_mode = self._enc.mode
         self.mode = RLE_BASE.get(self.user_mode, self.user_mode)
-        if is_best_mode(self.mode):
-            raise not_ported("best")
         self.strip_rows = strip_rows
         self.with_index = with_index
         self.index_chunk_blocks = index_chunk_blocks
@@ -77,6 +76,7 @@ class StripEncoder:
         self._totals = []       # each strip's bits
         self._glens = []
         self._rungs = []
+        self._best_meta = []    # (meta16, cfv) per strip, for the "ib" sidecar
         self._done = False
 
     # ------------------------------------------------------------------ feed
@@ -124,13 +124,16 @@ class StripEncoder:
         if e.quanta >= 2:
             work = quantize(work, e.quanta, e.away)
         uns = work.view(UNSIGNED[work.dtype.itemsize])
-        used, total, state, glen, rung = e._encode_words(uns, self.mode)
+        used, total, state, glen, rung, best = e._encode_words(uns, self.mode)
         e._commit_state(state)
         self._parts.append(used.clone())  # the copy frees the worst-case buffer
         self._totals.append(total)
         if self.with_index:
             self._glens.append(glen.cpu().numpy())
-            self._rungs.append(rung.cpu().numpy())
+            if best is None:
+                self._rungs.append(rung.cpu().numpy())
+            else:
+                self._best_meta.append((best[0].cpu().numpy(), best[1].cpu().numpy()))
 
     # ---------------------------------------------------------------- finish
 
@@ -154,7 +157,12 @@ class StripEncoder:
         index, index_sig = None, b"ix"
         if self.with_index and self._glens:
             glens = np.concatenate([g.reshape(-1) for g in self._glens])
-            if self.with_index == "ic":
+            if self._best_meta:
+                # Encoder._best_sidecar's payload, from the strips' meta
+                index, index_sig = best_sidecar(
+                    glens, np.concatenate([m for m, _ in self._best_meta]),
+                    np.concatenate([c for _, c in self._best_meta])), b"ib"
+            elif self.with_index == "ic":
                 rungs = np.concatenate(self._rungs, axis=0)
                 k = self.index_chunk_blocks or IC_DEFAULT_K
                 spans, entry = chunk_spans(glens.astype(np.int64), rungs,
@@ -211,8 +219,6 @@ class StripDecoder:
             self._whole = dec.read_data()
             self.decode_path = dec.decode_path
             return
-        if is_best_mode(info.mode):
-            raise not_ported("best")
         data = stream[info.data_offset:]
         if needs_rle(info.mode):
             expected = rle.rle0_decoded_size(data)
@@ -282,6 +288,11 @@ class StripDecoder:
         self._bit = meta["end_pos"]
         self._runbits = meta["rung"].reshape(nblocks, nb)[-1].astype(np.int32)
         self._prev = exit_prev
+        # each band's previous CF: its last CF / CF0 group's, biased
+        kind, cf = meta["kind"].reshape(nblocks, nb), meta["cf"].reshape(nblocks, nb)
+        iscf = (kind == KIND_CF) | (kind == KIND_CF0)
+        for c in np.flatnonzero(iscf.any(0)):
+            self._pcf[c] = cf[iscf[:, c], c][-1] - np.uint64(2)
         # end-of-stream rule on the final strip (QB3decode.h:411)
         if last:
             leftover = len(self._data) * 8 - meta["end_pos"]

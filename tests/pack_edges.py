@@ -6,9 +6,12 @@ look-back across blocks, restarting at every tile) and assemble each
 block's words in shared memory, so the inputs that can break them are: one
 group, a group count that is not a multiple of BLOCK, many tiles, zero-length
 groups (a whole block of them emits no bits), block edges at every bit
-phase, totals past the stream buffer (truncation) and u64 codes of 65 bits.
-The CPU tests hand small versions to qb3_tpu's Pallas kernels in interpret
-mode and to the port's twins; the card tests hand them to the kernels.
+phase, totals past the stream buffer (truncation) and u64 codes of 65 bits;
+at the fast modes' symbol counts (S = 17, 33 for u64) and the best modes'
+(S = 27, 43 for u64: 3 prefix symbols, 16 values with their 65th bits for
+u64, 8 index uniques), where a K1 block stages more shared memory.  The CPU
+tests hand small versions to qb3_tpu's Pallas kernels in interpret mode and
+to the port's twins; the card tests hand them to the kernels.
 """
 
 import numpy as np
@@ -24,6 +27,13 @@ K1_CASES = {
     "phases": (32, 2 * BLOCK, 17, 9),
     "truncated": (1, 300, 17, 17),
     "u64-65-bit": (1, 300, 33, 64),
+    "s27-one-group": (1, 1, 27, 17),
+    "s27-ragged": (1, 300, 27, 17),
+    "s27-truncated": (1, 300, 27, 17),
+    "s43-one-group": (1, 1, 43, 64),
+    "s43-ragged": (1, 300, 43, 64),
+    "s43-truncated": (1, 300, 43, 64),
+    "s43-65-bit": (1, 300, 43, 64),
 }
 # small versions for the CPU: the JAX kernel packs one tile a call
 K1_SMALL = {"tiles": (3, 200, 17, 9), "phases": (4, 2 * BLOCK, 17, 9)}
@@ -43,10 +53,13 @@ def k1_case(name: str, small: bool = False, seed: int = 0):
     rng = np.random.default_rng(seed + len(name))
     lens = rng.integers(0, maxlen + 1, (ntiles, ngroups, S)).astype(np.int32)
     lens[rng.random(lens.shape) < 0.2] = 0
-    if name == "u64-65-bit":  # a prefix, then each value's 64-bit code and its 65th bit
-        lens[..., 1::2] = 64
-        lens[..., 2::2] = 1
-        lens[..., 0] = rng.integers(1, 10, (ntiles, ngroups))
+    if name.endswith("65-bit"):
+        # the prefix (one symbol, or the best modes' three), then each
+        # value's 64-bit code and its 65th bit (then the best modes' uniques)
+        p = 1 if S == 33 else 3
+        lens[..., p:p + 32:2] = 64
+        lens[..., p + 1:p + 32:2] = 1
+        lens[..., :p] = rng.integers(1, 10, (ntiles, ngroups, p))
     if name == "zero-block":
         lens[:, BLOCK:2 * BLOCK] = 0  # a whole block emits no bits
     if name == "phases":
@@ -56,7 +69,7 @@ def k1_case(name: str, small: bool = False, seed: int = 0):
         before = lens[:, :BLOCK - 1].astype(np.int64).sum((1, 2))
         lens[:, BLOCK - 1, 0] = 32 + (np.arange(ntiles) - before) % 32
     total = int(lens.astype(np.int64).sum((1, 2)).max())
-    n_words = total // 64 if name == "truncated" else total // 32 + 2
+    n_words = total // 64 if name.endswith("truncated") else total // 32 + 2
     return random_codes(rng, lens), lens, n_words
 
 

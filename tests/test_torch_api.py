@@ -152,19 +152,22 @@ def test_tiles_equal(dtype, mode):
 
 
 def test_not_ported_paths_raise():
-    """The best encode and the decode of a best stream's "ic" sidecar raise,
-    naming their ROADMAP item; streams without a sidecar, FTL and best
-    (CF_H) alike, decode (the serial walk) to qb3_tpu's arrays."""
-    img = corpus.natural8(16, 16, 1, seed=18)
+    """The paths that raised NotImplementedError before best mode was
+    ported now give qb3_tpu's bytes and arrays: the best encode with no
+    sidecar, "ib" and "ic", and the decode of a best stream's "ic" sidecar;
+    streams without a sidecar, FTL and best (CF_H) alike, decode (the serial
+    walk) to qb3_tpu's arrays."""
+    img = corpus.natural8(16, 16, 1, seed=18) // 3 * 3
     for stream in (qb3_tpu.encode(img), qb3_tpu.encode(img, mode=Mode.CF_H)):
         np.testing.assert_array_equal(qt.decode(stream, device=CPU)[0],
                                       qb3_tpu.decode(stream)[0])
-    stream = qb3_tpu.encode(img, mode=Mode.CF_H, index="ic")
+    for index in (False, True, "ic"):
+        stream = qb3_tpu.encode(img, mode=Mode.CF_H, index=index)
+        assert qt.encode(img, mode=Mode.CF_H, index=index, device=CPU) == stream
     assert container.parse_headers(stream).index_chunked is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        qt.decode(stream, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        qt.encode(img, mode=Mode.CF_H, device=CPU)
+    dec = qt.Decoder(stream, device=CPU)
+    np.testing.assert_array_equal(dec.read_data(), qb3_tpu.decode(stream)[0])
+    assert dec.decode_path == "ic-best"
 
 
 def test_headline_sha256():

@@ -3,9 +3,10 @@
 and IDX groups and the edge inputs of tests/k5_edges.py included), K6
 (slab placement), K7 (window gather), K8 (fused image-layout VLC + pack)
 and P1-P7 (the Mosaic probes) of
-qb3_tpu_torch against their plain PyTorch twins, and the public decode
-(best-mode streams included) and the strips on the card against the
-CPU's.
+qb3_tpu_torch against their plain PyTorch twins (K1 also at the best modes'
+symbol counts), and the public decode (best-mode streams included), the
+best modes' phase A, encode, batches and strips and the strips on the card
+against the CPU's.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither jax nor qb3_tpu, so it also runs on a machine without JAX:
@@ -113,7 +114,7 @@ def test_k1_edges_match_twin(cuda, name):
         for g, w in zip(got, want):
             assert g.shape == w.shape and g.dtype == w.dtype
             assert torch.equal(g, w)
-    if name == "truncated":
+    if name.endswith("truncated"):
         assert int(got[1]) > 32 * n_words
     _one_launch(lambda: pack_cuda.pack_groups_chunked(codes, lens, n_words, 64),
                 "pack_groups_kernel")
@@ -638,6 +639,70 @@ def test_cuda_best_decode_equals_cpu(cuda):
         assert gather_slabs.launches == k7 + 1 and \
             wavefront8.launches + wavefront_wide.launches == k5 + 1, name
         np.testing.assert_array_equal(out, qt.decode(stream, device="cpu")[0], err_msg=name)
+
+
+def _best_raster(dtype, h=24, w=32, c=3, seed=45):
+    """Grain with common factors (of u16 range for the wide types), a
+    few-valued area (index groups) and a flat one."""
+    narrow = np.uint16 if np.dtype(dtype).itemsize > 2 else dtype
+    img = headline_image(h, w, c, seed=seed, dtype=narrow).astype(dtype) // 3 * 3
+    step = min(np.iinfo(dtype).max // 37, 1000)  # factors within the sidecars' 16 bits
+    rng = np.random.default_rng(seed)
+    img[: h // 2, : w // 2] = (np.array([0, 1, 3, 7]) * step + 11).astype(dtype)[
+        rng.integers(0, 4, (h // 2, w // 2, c))]
+    img[h // 2:, w // 2:] = 5
+    return img
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32, np.uint64])
+def test_encode_best_blocks_cuda_equals_cpu(cuda, dtype):
+    """The best modes' phase A on the card: all nine outputs equal its run
+    on the CPU."""
+    from qb3_tpu_torch.ops.encode_best import encode_best_blocks
+
+    img = _best_raster(dtype, 20, 28)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        zero = torch.zeros(3, dtype=torch.int64, device=dev)
+        outs.append(encode_best_blocks(to_carrier(img, dev), zero, zero, zero, HILBERT,
+                                       (1, 1, 1), 8 * img.itemsize))
+    for i, (g, w) in enumerate(zip(*outs)):
+        assert torch.equal(g.cpu(), w), i
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint64])
+def test_cuda_best_paths_equal_cpu(cuda, dtype):
+    """The best encode (phase A + K1) on the card gives the CPU's bytes with
+    no sidecar, "ib" and "ic"; the decodes ("ic-best" walk, "ib": K7 + K5)
+    give the raster; the batch and the strips give the CPU's bytes."""
+    img = _best_raster(dtype)
+    for mode, index in ((Mode.CF_H, False), (Mode.CF_RLE_H, True), (Mode.CF_H, "ic"),
+                        (Mode.CF, True)):
+        k1 = pack_cuda.pack_groups_chunked.launches
+        stream = qt.encode(img, mode=mode, index=index, device=cuda)
+        assert pack_cuda.pack_groups_chunked.launches == k1 + 1
+        assert stream == qt.encode(img, mode=mode, index=index, device="cpu")
+        dec = qt.Decoder(stream, device=cuda)
+        np.testing.assert_array_equal(dec.read_data(), img)
+        info = container.parse_headers(stream)
+        assert dec.decode_path == ("ib" if info.index_best else "ic-best"
+                                   if info.index_chunked else "native-walk")
+        assert (info.index_best or info.index_chunked) if index else True
+    tiles = np.stack([_best_raster(dtype, seed=s) for s in (46, 47, 48)])
+    streams = qt.encode_tiles(tiles, mode=Mode.CF_H, index=True, device=cuda)
+    assert streams == qt.encode_tiles(tiles, mode=Mode.CF_H, index=True, device="cpu")
+    np.testing.assert_array_equal(qt.decode_tiles(streams, device=cuda), tiles)
+    h, w, c = img.shape
+    se = qt.StripEncoder(w, h, c, qt.api.DT_FROM_NP[img.dtype], mode=Mode.CF_H, strip_rows=8,
+                         with_index=True, device=cuda)
+    se.push(img)
+    stream = se.finish()
+    assert stream == qt.encode(img, mode=Mode.CF_H, index=True, device="cpu")
+    sd = qt.StripDecoder(stream, strip_rows=8, device=cuda)
+    rows = []
+    while (r := sd.read(8)) is not None:
+        rows.append(r)
+    np.testing.assert_array_equal(np.concatenate(rows), img)
 
 
 @pytest.mark.parametrize("name", list(probes.PROBES))

@@ -163,12 +163,20 @@ def test_errors():
 
 @pytest.mark.parametrize("mode", [Mode.CF_H, Mode.CF_RLE_H, Mode.CF])
 def test_best_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        qt.StripEncoder(32, 32, 1, 0, mode=mode, device=CPU)
-    stream = qb3_tpu.encode(corpus.natural8(32, 32, 1, seed=2) // 3 * 3, mode=mode)
+    """The best modes, which raised NotImplementedError before they were
+    ported: StripEncoder's bytes equal qb3_tpu's StripEncoder's and the
+    whole-image encode, and StripDecoder reads qb3_tpu's stream to the
+    raster (tests/test_torch_best.py holds the sidecars)."""
+    img = corpus.natural8(32, 32, 1, seed=2) // 3 * 3
+    stream = _port_strips(img, mode, [12, 20], 16)
+    assert stream == _stream_in_pieces(qb3_tpu.StripEncoder, img, mode, [12, 20], 16)
+    assert stream == qb3_tpu.encode(img, mode=mode)
     assert is_best_mode(container.parse_headers(stream).mode)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        qt.StripDecoder(stream, device=CPU)
+    sd = qt.StripDecoder(stream, strip_rows=16, device=CPU)
+    rows = []
+    while (r := sd.read(10)) is not None:
+        rows.append(r)
+    np.testing.assert_array_equal(np.concatenate(rows), img)
 
 
 # ------------------------------------------------------------ StripDecoder
