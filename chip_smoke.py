@@ -148,6 +148,9 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
 BEST_K1 = {"pack_groups_chunked best S=27": "u8 512x512x3",
            "pack_groups_chunked best S=43": "u64 1024x1024x1"}
 STRIP_ROWS = 256  # rows a strip encodes and a strip read returns (phase 5)
+# phase 6: tiles a batch of bench.py's pipelined row (bench.py:381) and of
+# its bulk foreign row (bench.py:266), 4 batches each
+ROW_TILES, FOREIGN_TILES = 32, 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM INT32 rate: 64 INT32 lanes per SM and clock (NVIDIA H100 Tensor
 # Core GPU Architecture), 132 SMs, at the 1.98 GHz that the data sheet's
@@ -1190,18 +1193,22 @@ def probe_main_path(kernels) -> dict:
 
 
 class no_twins:
-    """Within the block, the twins of K5a, K5b and K7 raise if called: the
-    decode path inside runs on the kernels alone."""
+    """Within the block, the twins of K1-K8 raise if called: the path
+    inside runs on the kernels alone."""
 
     def __enter__(self):
-        from qb3_tpu_torch.ops import gather_cuda, wavefront_cuda
+        from qb3_tpu_torch.ops import (chunkwalk_cuda, encode_cuda, fusedwin_cuda, gather_cuda,
+                                       pack_cuda, place_cuda, wavefront_cuda)
 
         def refuse(*_, **__):
             raise AssertionError("a twin ran on the card's path")
 
         self.saved = [(m, n, getattr(m, n)) for m, n in (
             (wavefront_cuda, "wavefront8_plain"), (wavefront_cuda, "wavefront_wide_plain"),
-            (gather_cuda, "gather_slabs_plain"))]
+            (gather_cuda, "gather_slabs_plain"), (pack_cuda, "pack_groups"),
+            (pack_cuda, "extract_windows_plain"), (chunkwalk_cuda, "chunkwalk8_plain"),
+            (fusedwin_cuda, "wavefront_fused_plain"), (encode_cuda, "encode_pack_image_plain"),
+            (place_cuda, "place_slabs_plain"))]
         for m, n, _ in self.saved:
             setattr(m, n, refuse)
 
@@ -1826,6 +1833,322 @@ def walk_phase(dev, card, img, wide_imgs, kernels, ic_stream, ix_stream):
     return walk_launches
 
 
+def in_turns(paths: dict, mb: float, runs: int = 3) -> dict:
+    """Host-to-host MB/s of each path (a function whose result is on the
+    host), each run once to warm up, then `runs` times in turns, the order
+    reversed every other round -> name -> rates, sorted."""
+    import torch
+
+    names = list(paths)
+    times = {k: [] for k in names}
+    for name in names:
+        paths[name]()
+    for r in range(runs):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths[name]()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return {k: sorted(mb / t for t in v) for k, v in times.items()}
+
+
+def rates_text(r: list) -> str:
+    """Median MB/s and the range of the runs."""
+    return f"median {r[len(r) // 2]:.2f} MB/s (runs {r[0]:.2f}-{r[-1]:.2f}, n={len(r)})"
+
+
+class stage_times(dict):
+    """Within the block, the host ms spent in each stage of pipeline.py and
+    foreign.py, summed over a run's batches: plan (checks, sidecar parses,
+    the flat layout; foreign's walks), layout (foreign's flat layout),
+    inputs (the upload stage's host work), put (page-locked staging and the
+    upload's enqueue), dispatch (the device work's enqueue), fetch (the
+    page-locked buffers and the copies' enqueue), wait (on the fetch
+    events) and finish (containers or arrays)."""
+
+    def __enter__(self):
+        import functools
+
+        from qb3_tpu_torch import foreign, pipeline
+
+        def timed(name, fn):
+            @functools.wraps(fn)
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self[name] = self.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return wrapper
+
+        self.saved = [(m, n, m.__dict__[n]) for m, n in (
+            (pipeline, "_plan"), (pipeline, "plan_decode"), (pipeline, "decode_inputs"),
+            (pipeline, "upload_tiles"), (pipeline, "encode_dispatch"),
+            (pipeline, "decode_dispatch"), (pipeline, "encode_finish"),
+            (pipeline, "decode_finish"), (foreign, "plan_streams"), (foreign, "flat_plan"),
+            (pipeline.Lanes, "put"), (pipeline.Lanes, "fetch"), (pipeline.Lanes, "wait"))]
+        names = {"_plan": "plan", "plan_decode": "plan", "plan_streams": "plan",
+                 "flat_plan": "layout", "decode_inputs": "inputs", "upload_tiles": "inputs",
+                 "encode_dispatch": "dispatch", "decode_dispatch": "dispatch",
+                 "encode_finish": "finish", "decode_finish": "finish"}
+        for m, n, fn in self.saved:
+            if isinstance(fn, staticmethod):
+                setattr(m, n, staticmethod(timed(n, fn.__func__)))
+            else:
+                setattr(m, n, timed(names.get(n, n), fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def stage_line(label: str, fn, card: str):
+    """One run of fn with its stages' host ms (stage_times)."""
+    import torch
+
+    with stage_times() as ms:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    log(f"stages {label}: {total:.2f} ms host to host; "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + f" ms ({card})")
+
+
+def serving_phase(dev, card, kernels) -> dict:
+    """Phase 6, the serving paths (pipeline.py, foreign.py, cli.py), each
+    main path with the launch counts set to 0 just before and read just
+    after and every twin refused:
+      * the pipelined "ic" encode and decode of 3 batches of 128 u8
+        512x512x3 tiles (fill, steady state, drain; the first tile is the
+        headline raster, its stream pinned), the streams equal to
+        batch.encode_tiles', host-to-host MB/s beside the same batches
+        through encode_tiles / decode_tiles one after another, the
+        device's idle share, the peak device memory, each stage's host
+        ms in one run (stage_times);
+      * bench.py's pipelined row, 4 batches of 32 tiles, decoded with
+        "ic", "ix" and the best modes' "ib" sidecars, beside decode_tiles;
+      * the bulk decode of streams without a sidecar (bench.py's row: 4
+        batches of 24 FTL streams; 24 RLE_H and 24 CF_H), one walker thread
+        against the pool, split into the walks alone and walks + device,
+        and its stages' host ms;
+      * the CLI on the card in a temporary directory (u8 .npy and a 16-bit
+        RGB PNG on pngio's own codec, -b, --index, -q +4, a folder,
+        --trace) and profiling.meter.
+    Returns the launch counts, kernel name -> count."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import batch, cli, container, foreign, pipeline, pngio, profiling
+    from qb3_tpu_torch.benchutil import HEADLINE_SHA256, device_profile, headline_image
+    from qb3_tpu_torch.constants import Mode
+
+    t0 = time.perf_counter()
+    seeds = [42] + [3000 + i for i in range(3 * BATCH - 1)]  # 42: headline_image()'s
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        imgs = list(ex.map(lambda seed: headline_image(seed=seed), seeds))
+    batches = [np.stack(imgs[k * BATCH:(k + 1) * BATCH]) for k in range(3)]
+    log(f"serving inputs: {len(imgs)} u8 512x512x3 tiles in {time.perf_counter() - t0:.2f} s")
+    launches = {}
+
+    def counted(label, fn, want: dict):
+        """fn() with the counts set to 0 just before, read just after, the
+        twins refused and the peak device memory taken."""
+        out = {}
+        reset(kernels)
+        with no_twins():
+            peak = peak_bytes(lambda: out.update(v=fn()))
+        got = {k: kernels[k].launches for k in want}
+        log(f"launch counts on the {label} path: {got} (peak device memory "
+            f"{peak / 2**20:.1f} MiB; {card})")
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        return out["v"]
+
+    def profile_line(label, fn):
+        p = device_profile(fn, 1)
+        log(f"profile {label}: wall {p['wall_ms']:.4f} ms, device active {p['active_ms']:.4f} "
+            f"ms (busy {p['busy_ms']:.4f} summed over streams), idle share "
+            f"{p['active_idle']:.3f}, {p['ops']:.0f} device ops, lost {p['lost']} ({card})")
+
+    # the pipelined "ic" encode and decode at the main path's batch width
+    def enc():
+        return list(pipeline.encode_tiles_pipelined(iter(batches), index="ic", device=dev))
+
+    streams = counted("pipelined ic encode (3 x 128)", enc, {"pack_groups_chunked": 3})
+    sha = hashlib.sha256(streams[0][0]).hexdigest()
+    check(sha == HEADLINE_SHA256, f"pipelined headline sha256 {sha} != {HEADLINE_SHA256}")
+    serial = [batch.encode_tiles(b, index="ic", device=dev) for b in batches]
+    check(streams == serial, "pipelined streams differ from batch.encode_tiles'")
+
+    def dec():
+        return list(pipeline.decode_tiles_pipelined(iter(streams), device=dev))
+
+    out = counted("pipelined ic decode (3 x 128)", dec,
+                  {"extract_windows": 3, "chunkwalk8": 3})
+    check(all(np.array_equal(d, b) for d, b in zip(out, batches)), "pipelined ic decode")
+    del out, serial
+    log(f"pipelined ic 3 x {BATCH}: headline stream sha256 {sha}, every stream equal to "
+        "batch.encode_tiles', decoded to the tiles")
+    mb = sum(b.nbytes for b in batches) / 1e6
+    rates = in_turns({
+        "encode pipelined": enc,
+        "encode serial": lambda: [batch.encode_tiles(b, index="ic", device=dev)
+                                  for b in batches],
+        "decode pipelined": dec,
+        "decode serial": lambda: [batch.decode_tiles(x, device=dev) for x in streams]}, mb)
+    for name, r in rates.items():
+        log(f"host-to-host ic 3 x {BATCH} {name}: {rates_text(r)} ({card})")
+    stage_line(f"pipelined ic encode 3 x {BATCH}", enc, card)
+    stage_line(f"pipelined ic decode 3 x {BATCH}", dec, card)
+    profile_line(f"pipelined ic encode 3 x {BATCH}", enc)
+    profile_line(f"serial ic encode 3 x {BATCH}",
+                 lambda: [batch.encode_tiles(b, index="ic", device=dev) for b in batches])
+    profile_line(f"pipelined ic decode 3 x {BATCH}", dec)
+    profile_line(f"serial ic decode 3 x {BATCH}",
+                 lambda: [batch.decode_tiles(x, device=dev) for x in streams])
+    del streams
+
+    # bench.py's pipelined row: 4 batches of 32 tiles, three sidecars
+    row = [np.stack(imgs[k * ROW_TILES:(k + 1) * ROW_TILES]) for k in range(4)]
+    mb = sum(b.nbytes for b in row) / 1e6
+    ic = counted(f"pipelined ic encode (4 x {ROW_TILES})", lambda: list(
+        pipeline.encode_tiles_pipelined(iter(row), index="ic", device=dev)),
+        {"pack_groups_chunked": 4})
+    ix = counted(f"pipelined ix encode (4 x {ROW_TILES})", lambda: list(
+        pipeline.encode_tiles_pipelined(iter(row), index=True, device=dev)),
+        {"pack_groups_chunked": 4})
+    ib = [qt.encode_tiles(b, mode=Mode.CF_H, index=True, device=dev) for b in row]
+    want = {"ic": {"extract_windows": 4, "chunkwalk8": 4}, "ix": {"wavefront_fused": 4},
+            "ib": {"gather_slabs": 4, "wavefront8": 4}}
+    for label, ss in (("ic", ic), ("ix", ix), ("ib", ib)):
+        got = counted(f"pipelined {label} decode (4 x {ROW_TILES})",
+                      lambda ss=ss: list(pipeline.decode_tiles_pipelined(iter(ss), device=dev)),
+                      want[label])
+        check(all(np.array_equal(d, b) for d, b in zip(got, row)), f"pipelined {label} decode")
+        rates = in_turns({
+            "pipelined": lambda ss=ss: list(pipeline.decode_tiles_pipelined(iter(ss),
+                                                                           device=dev)),
+            "serial": lambda ss=ss: [batch.decode_tiles(x, device=dev) for x in ss]}, mb)
+        for name, r in rates.items():
+            log(f"host-to-host {label} decode 4 x {ROW_TILES} {name}: {rates_text(r)} ({card})")
+    rates = in_turns({
+        "pipelined": lambda: list(pipeline.encode_tiles_pipelined(iter(row), index="ic",
+                                                                  device=dev)),
+        "serial": lambda: [batch.encode_tiles(b, index="ic", device=dev) for b in row]}, mb)
+    for name, r in rates.items():
+        log(f"host-to-host ic encode 4 x {ROW_TILES} {name}: {rates_text(r)} ({card})")
+    del ic, ix, ib
+
+    # the bulk decode of streams without a sidecar (the port's default encode)
+    fb = [imgs[BATCH + FOREIGN_TILES * k:BATCH + FOREIGN_TILES * (k + 1)] for k in range(4)]
+    fstreams = [qt.encode_tiles(np.stack(b), device=dev) for b in fb]
+    check(fstreams[0][0] == qt.encode(fb[0][0], device=dev),
+          "encode_tiles' FTL stream differs from the default encode's")
+    out = counted(f"foreign FTL (4 x {FOREIGN_TILES})", lambda: list(
+        foreign.decode_streams_pipelined(iter(fstreams), device=dev)),
+        {"gather_slabs": 4, "wavefront8": 4})
+    check(all(np.array_equal(d, np.stack(b)) for d, b in zip(out, fb)), "foreign FTL decode")
+    nodata = [x.copy() for x in fb[0]]
+    for x in nodata:  # a no-data area (phase 5's): zero runs, so every stream is RLE_H
+        x[x.shape[0] // 8:5 * x.shape[0] // 8, 3 * x.shape[1] // 16:7 * x.shape[1] // 8] = 0
+    extra = {"RLE_H": (nodata, [qt.encode(x, mode=Mode.RLE_H, device=dev) for x in nodata]),
+             "CF_H": (fb[1], qt.encode_tiles(np.stack(fb[1]), mode=Mode.CF_H, device=dev))}
+    for label, (b, ss) in extra.items():
+        modes = {Mode(container.parse_headers(x).mode).name for x in ss}
+        check(modes == {label}, f"foreign {label}: the streams' modes are {modes}")
+        t, np_dt = counted(f"foreign {label} ({FOREIGN_TILES})", lambda ss=ss: foreign.decode_streams(
+            ss, device=dev), {"gather_slabs": 1, "wavefront8": 1})
+        check(t.is_cuda, f"foreign {label}: the tiles are not on the card")
+        check(np.array_equal(t.cpu().numpy().view(np_dt), np.stack(b)),
+              f"foreign {label} decode")
+    one = foreign.decode_streams(fstreams[0], workers=1, device=dev)[0]
+    pool = foreign.decode_streams(fstreams[0], device=dev)[0]
+    check(torch.equal(one, pool), "foreign: one walker thread and the pool disagree")
+    log(f"foreign bulk decode: 4 x {FOREIGN_TILES} FTL, {FOREIGN_TILES} RLE_H and "
+        f"{FOREIGN_TILES} CF_H equal to the tiles; workers=1 equals the pool")
+    flat = [x for b in fstreams for x in b]
+    infos = [container.parse_headers(x) for x in flat]
+    mb = sum(x.nbytes for b in fb for x in b) / 1e6
+
+    def walks(workers):
+        with ThreadPoolExecutor(workers) as ex:
+            return list(ex.map(foreign._walk_one, flat, infos))
+
+    def walks_device():
+        for b in fstreams:
+            t, _ = foreign.decode_streams(b, device=dev)
+        torch.cuda.synchronize()
+
+    rates = in_turns({
+        "walks alone, 1 thread": lambda: walks(1),
+        f"walks alone, pool ({os.cpu_count()} cores)": lambda: walks(None),
+        "walks + device (no fetch)": walks_device,
+        "pipelined, host to host": lambda: list(
+            foreign.decode_streams_pipelined(iter(fstreams), device=dev)),
+        "one-shot decode a stream": lambda: [qt.decode(x, device=dev) for x in flat]}, mb)
+    for name, r in rates.items():
+        log(f"foreign FTL 4 x {FOREIGN_TILES} {name}: {rates_text(r)} ({card})")
+    stage_line(f"foreign FTL pipelined 4 x {FOREIGN_TILES}", lambda: list(
+        foreign.decode_streams_pipelined(iter(fstreams), device=dev)), card)
+    profile_line(f"foreign FTL pipelined 4 x {FOREIGN_TILES}", lambda: list(
+        foreign.decode_streams_pipelined(iter(fstreams), device=dev)))
+    del fstreams, extra, out
+
+    # the CLI on the card
+    img = imgs[0]
+    rgb16 = headline_image(256, 256, 3, seed=9, dtype=np.uint16)
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(*argv):
+            check(cli.main([*argv, "--device", "cuda"]) == 0, f"cli {argv}")
+
+        def back(path):  # the CLI writes u8 / u16 as PNG, on pngio's own codec here
+            with open(path, "rb") as f:
+                return pngio._read_pure(f.read())
+
+        np.save(os.path.join(tmp, "a.npy"), img)
+        pngio.write_png(os.path.join(tmp, "b.png"), rgb16)
+        for name, flags in (("a", []), ("a-best", ["-b"]), ("a-ix", ["--index"]),
+                            ("a-q4", ["-q", "+4"])):
+            run(os.path.join(tmp, "a.npy"), os.path.join(tmp, f"{name}.qb3"), *flags)
+            run("-d", os.path.join(tmp, f"{name}.qb3"), os.path.join(tmp, f"{name}.png"))
+            err = np.abs(back(os.path.join(tmp, f"{name}.png")).astype(int) - img).max()
+            check(err <= (2 if name == "a-q4" else 0), f"cli {name}: error {err}")
+        run(os.path.join(tmp, "b.png"), os.path.join(tmp, "b.qb3"))
+        run("-d", os.path.join(tmp, "b.qb3"), os.path.join(tmp, "b-out.png"))
+        check(np.array_equal(back(os.path.join(tmp, "b-out.png")), rgb16), "cli 16-bit RGB PNG")
+        folder = os.path.join(tmp, "folder")
+        os.makedirs(folder)
+        for i in range(2):
+            np.save(os.path.join(folder, f"t{i}.npy"), imgs[1 + i])
+        run(folder)
+        for i in range(2):
+            check(qt.decode(open(os.path.join(folder, f"t{i}.qb3"), "rb").read(),
+                            device=dev)[0].tobytes() == imgs[1 + i].tobytes(),
+                  f"cli folder t{i}")
+        trace = os.path.join(tmp, "trace")
+        run(os.path.join(tmp, "a.npy"), os.path.join(tmp, "t.qb3"), "--index", "--trace", trace)
+        (name,) = os.listdir(trace)
+        with open(os.path.join(trace, name)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        found = sorted(k for k in ("pack_groups_kernel", "encode_pack_image_kernel")
+                       if any(k in n for n in names))
+        check(found, "cli --trace: no kernel of the port in the trace")
+        with profiling.meter(img.nbytes) as m:
+            qt.encode(img, index="ic", device=dev)
+        check(m.mbps > 0, "profiling.meter gave no rate")
+    log(f"cli on the card: u8 .npy (FTL, -b, --index, -q +4), 16-bit RGB PNG, a folder; "
+        f"--trace names {found}; profiling.meter {m.mbps:.2f} MB/s host to host ({card})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2109,6 +2432,10 @@ def main() -> int:
         launches[k] += n
     landsat_split(dev, card)
     launches.update(probe_main_path(kernels))
+
+    log("# phase 6: serving paths")
+    for k, n in serving_phase(dev, card, kernels).items():
+        launches[k] = launches.get(k, 0) + n
 
     def entry(name: str, kernel: str, n: int) -> dict:
         """The kernels line's entry of kres[name], a run of KERNELS[kernel]

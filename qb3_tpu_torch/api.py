@@ -182,24 +182,35 @@ def unpack_small(img: np.ndarray, h: int, w: int, nb: int) -> np.ndarray:
 
 # ------------------------------------------------------- host <-> device
 
-def to_carrier(uns: np.ndarray, device) -> torch.Tensor:
-    """Unsigned numpy array -> int64 carrier tensor on `device` (bitutils.py):
-    the copy moves the native width, the widening runs on the device."""
-    size = uns.dtype.itemsize
-    uns = np.require(uns, requirements=["C", "W"])  # torch wants writable memory
-    t = torch.from_numpy(uns.view(_NP_SIGNED[size])).to(device)
+def widen(t: torch.Tensor, size: int) -> torch.Tensor:
+    """The signed twin of `size`-byte unsigned values -> the int64 carrier,
+    widened on the tensor's device."""
     if size == 8:
         return t
     return t.to(torch.int64) & ((1 << (8 * size)) - 1)
 
 
-def from_carrier(t: torch.Tensor, size: int) -> np.ndarray:
-    """int64 carrier of `size`-byte unsigned values -> numpy unsigned array:
-    narrowed on the device, then copied to the host."""
+def to_carrier(uns: np.ndarray, device) -> torch.Tensor:
+    """Unsigned numpy array -> int64 carrier tensor on `device` (bitutils.py):
+    the copy moves the native width, the widening runs on the device."""
+    size = uns.dtype.itemsize
+    uns = np.require(uns, requirements=["C", "W"])  # torch wants writable memory
+    return widen(torch.from_numpy(uns.view(_NP_SIGNED[size])).to(device), size)
+
+
+def narrow(t: torch.Tensor, size: int) -> torch.Tensor:
+    """int64 carrier of `size`-byte unsigned values -> their signed twin at
+    the type's width, narrowed on the tensor's device."""
     if size not in (1, 8):
         half = 1 << (8 * size - 1)
         t = torch.where(t >= half, t - 2 * half, t)  # exact in the signed twin
-    return t.to(_TORCH_SIGNED[size]).cpu().numpy().view(UNSIGNED[size])
+    return t.to(_TORCH_SIGNED[size])
+
+
+def from_carrier(t: torch.Tensor, size: int) -> np.ndarray:
+    """int64 carrier of `size`-byte unsigned values -> numpy unsigned array:
+    narrowed on the device, then copied to the host."""
+    return narrow(t, size).cpu().numpy().view(UNSIGNED[size])
 
 
 # ------------------------------------------------------------------- encoder
@@ -511,22 +522,31 @@ def padded_words(payload: bytes) -> np.ndarray:
     return wpad
 
 
+def put_on(device):
+    """The decode inputs' host-to-device copy: a numpy array -> a tensor on
+    `device` (a copy from pageable memory; pipeline.Lanes.put copies through
+    page-locked memory instead)."""
+    return lambda arr: torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(device)
+
+
 def ic_inputs(words: np.ndarray, metas: list, tile_words32: int, tbits: int,
-              device) -> dict:
+              device, put=None) -> dict:
     """Device inputs of the "ic" decode.
 
     words: u64 stream words, one padded payload or a batch in the flat tile
     layout whose tiles start tile_words32 u32 words apart; metas: parse_ic's
-    result per tile.  Returns words32, starts, entry and k, plus (maxw, R)
-    for the u8/u16 chunk walk, computed once here (None for wider types).
+    result per tile; put: the host-to-device copy (put_on(device) if None).
+    Returns words32, starts, entry and k, plus (maxw, R) for the u8/u16
+    chunk walk, computed once here (None for wider types).
     """
     tbase = (np.arange(len(metas), dtype=np.int64) * tile_words32 * 32)[:, None]
     starts = (np.stack([m[1] for m in metas]) + tbase).reshape(-1)
     spans = np.concatenate([np.diff(np.append(m[1], m[3])) for m in metas])
     maxw, R = ic_walk_params(starts, spans) if tbits <= 16 else (None, None)
-    return dict(words32=torch.from_numpy(words.reshape(-1).view(np.int32)).to(device),
-                starts=torch.from_numpy(starts.astype(np.int32)).to(device),
-                entry=torch.from_numpy(np.concatenate([m[2] for m in metas])).to(device),
+    put = put or put_on(device)
+    return dict(words32=put(words.reshape(-1).view(np.int32)),
+                starts=put(starts.astype(np.int32)),
+                entry=put(np.concatenate([m[2] for m in metas])),
                 k=metas[0][0], maxw=maxw, R=R)
 
 
@@ -605,13 +625,14 @@ def walk_offsets(data: bytes, nblocks: int, nb: int, tsize: int, mode: int,
             "python-walk")
 
 
-def group_inputs(meta: dict, n32: int, tbits: int, device) -> dict:
+def group_inputs(meta: dict, n32: int, tbits: int, device, put=None) -> dict:
     """decode_groups' per-group arguments from a walk's result, or an "ib"
     sidecar's, over a stream of n32 u32 words: each group's window word,
     bit within it, rung and K5 kind, uploaded in one (4, ngroups) int32
     copy, and cf, None unless a group is CF or CF0, else in the same copy
     (cf as u64, then the four int32 rows, viewed apart on the device); nreg
-    and K7's span R computed here.  The window is _NREG_IX words for every
+    and K7's span R computed here; put is the host-to-device copy
+    (put_on(device) if None).  The window is _NREG_IX words for every
     kind and stream, the walk's and the sidecar's alike: it holds the
     longest group from any bit phase."""
     k5 = K5_KIND[meta["kind"].reshape(-1)]
@@ -623,14 +644,15 @@ def group_inputs(meta: dict, n32: int, tbits: int, device) -> dict:
     nreg = _NREG_IX[tbits]
     rows = np.stack([base, val_pos & 31, meta["vrung"].reshape(-1), k5])
     cf = None
+    put = put or put_on(device)
     if ((k5 == K5_KIND[KIND_CF]) | (k5 == K5_KIND[KIND_CF0])).any():
         host = np.empty(3 * n, np.int64)
         host[:n] = meta["cf"].reshape(-1).astype(np.uint64).view(np.int64)
         host[n:].view(np.int32).reshape(4, n)[:] = rows
-        t = torch.from_numpy(host).to(device)
+        t = put(host)
         cf, rows = t[:n], t[n:].view(torch.int32).reshape(4, n)
     else:
-        rows = torch.from_numpy(rows.astype(np.int32)).to(device)
+        rows = put(rows.astype(np.int32))
     return dict(base=rows[0], off=rows[1], rung=rows[2], kind=rows[3], cf=cf, nreg=nreg,
                 R=gather_span(base, nreg))
 
@@ -658,12 +680,13 @@ def _parse_best_sidecar(buf: bytes, ngroups: int):
                 end_pos=int(ends[-1]) if ngroups else 0)
 
 
-def walk_inputs(meta: dict, words: np.ndarray, tbits: int, device) -> dict:
+def walk_inputs(meta: dict, words: np.ndarray, tbits: int, device, put=None) -> dict:
     """decode_groups' arguments from a walk's result: the padded stream
-    words (padded_words) uploaded, and group_inputs."""
+    words (padded_words) uploaded by put (put_on(device) if None), and
+    group_inputs."""
     words32 = words.view(np.int32)
-    return dict(words32=torch.from_numpy(words32).to(device),
-                **group_inputs(meta, words32.size, tbits, device))
+    put = put or put_on(device)
+    return dict(words32=put(words32), **group_inputs(meta, words32.size, tbits, device, put))
 
 
 class Decoder:

@@ -131,14 +131,36 @@ _PROFILE_SENTINELS = 16
 _SENTINEL_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 
 
+def launch_sentinels() -> None:
+    """Launch the sentinel kernels (torch.cuda._sleep) that open every
+    profile here, and wait for them: once a process is about a minute old,
+    torch.profiler on the H100 keeps no record of a profile's first few
+    kernels (device_profile)."""
+    for _ in range(_PROFILE_SENTINELS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def _union_ms(spans) -> float:
+    """The time covered by (start, end) us intervals, in ms."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
 def device_profile(fn, iters: int = 10) -> dict:
     """Where a call's device time goes: torch.profiler over ``iters`` calls
     after a warm-up.  Returns per call: wall_ms (host clock to a
     synchronize, profiler overhead included), busy_ms (the summed time of
     the device's kernels and copies; on one stream they do not overlap),
-    idle (1 - busy / wall, an upper bound), ops (device operations), the
-    operation with the most device time (top, top_ms) and every operation's
-    device ms (per_op).
+    idle (1 - busy / wall, an upper bound), active_ms (the time at least one
+    of them ran: busy_ms on one stream, less where streams overlap) and
+    active_idle (1 - active / wall), ops (device operations), the operation
+    with the most device time (top, top_ms) and every operation's device ms
+    (per_op).
 
     On the H100 a profile loses device records.  Once a process is about a
     minute old, the first few kernels of every profile (6 in a check of
@@ -160,9 +182,7 @@ def device_profile(fn, iters: int = 10) -> dict:
     best = None
     for attempts in range(1, 6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(_PROFILE_SENTINELS):
-                torch.cuda._sleep(100)
-            torch.cuda.synchronize()
+            launch_sentinels()
             time.sleep(_PROFILE_PAD_S)
             t0 = time.perf_counter()
             for _ in range(iters):
@@ -170,7 +190,7 @@ def device_profile(fn, iters: int = 10) -> dict:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / iters
             time.sleep(_PROFILE_PAD_S)
-        per_name = {}
+        per_name, spans = {}, []
         n = kernels = 0
         launches = -_PROFILE_SENTINELS
         for e in prof.events():
@@ -179,20 +199,23 @@ def device_profile(fn, iters: int = 10) -> dict:
                     continue
                 per_name[e.name] = (per_name.get(e.name, 0.0)
                                     + e.time_range.elapsed_us() / 1e3 / iters)
+                spans.append((e.time_range.start, e.time_range.end))
                 n += 1
                 kernels += not e.name.startswith(("Memset", "Memcpy"))
             elif "LaunchKernel" in e.name:
                 launches += 1
         if per_name and (best is None or kernels > best[2]):
-            best = (wall, per_name, kernels, n, max(launches - kernels, 0))
+            best = (wall, per_name, kernels, n, max(launches - kernels, 0),
+                    _union_ms(spans) / iters)
         if per_name and kernels >= launches:
             break
     if best is None:
         raise RuntimeError("five profiles recorded no device activity")
-    wall, per_name, _, n, lost = best
+    wall, per_name, _, n, lost, active = best
     busy = sum(per_name.values())
     top = max(per_name, key=per_name.get)
-    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, ops=n / iters, top=top,
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, active_ms=active,
+                active_idle=1 - active / wall, ops=n / iters, top=top,
                 top_ms=per_name[top], per_op=per_name, attempts=attempts, lost=lost)
 
 

@@ -15,12 +15,24 @@ int64 tensor holding the unsigned bit pattern:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..constants import B2
 
 M32 = 0xFFFFFFFF
 _MIN64 = -(1 << 63)  # 2^63 as an int64 bit pattern
+
+
+@functools.cache
+def table(values: tuple, device) -> torch.Tensor:
+    """A small constant int64 table (a curve's lane order, core bands) on
+    `device`, uploaded once a process.  A copy from pageable host memory to
+    a CUDA device synchronizes the current stream, so the paths that run
+    behind other streams (pipeline.py) take their index tables from here
+    rather than upload them at each call."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
 
 
 def wrap(v, tbits: int):

@@ -22,7 +22,8 @@ import torch
 
 from ..constants import B, B2, curve_offsets
 from ..offsets import KIND_BITS, KIND_CF, KIND_CF0, KIND_IDX, KIND_NORMAL, KIND_ZERO
-from .bitutils import M32, peek64, smag, srl, step_flip_index, words_u32, words_u64, wrap
+from .bitutils import (M32, peek64, smag, srl, step_flip_index, table, words_u32, words_u64,
+                       wrap)
 from .encode import block_origins
 
 
@@ -367,10 +368,8 @@ def _lane_of(order: int) -> np.ndarray:
 
 def _band_add(img, cband, tbits: int):
     """Band-delta add pass (QB3decode.h:729-737) on (..., C) images."""
-    nb = img.shape[-1]
-    cb = np.asarray(cband)
-    core = img[..., torch.as_tensor(cb, device=img.device)]
-    dep = torch.as_tensor(cb != np.arange(nb), device=img.device).to(torch.int64)
+    core = img[..., table(tuple(int(c) for c in cband), img.device)]
+    dep = table(tuple(int(c != i) for i, c in enumerate(cband)), img.device)
     return wrap(img + core * dep, tbits)
 
 
@@ -383,7 +382,7 @@ def reconstruct_batch(groups, h: int, w: int, nbands: int, order: int,
         raise ValueError("batch reconstruct requires 4-aligned tiles")
     ntiles = groups.shape[0]
     v = wrap(_undelta_cumsum_blocks(smag(groups, tbits)), tbits)
-    inv = torch.as_tensor(_lane_of(order).reshape(-1), device=groups.device)
+    inv = table(tuple(_lane_of(order).reshape(-1).tolist()), groups.device)
     t = v[..., inv].reshape(ntiles, h // B, w // B, nbands, B, B)
     img = t.permute(0, 1, 4, 2, 5, 3).reshape(ntiles, h, w, nbands)
     return _band_add(img, cband, tbits)
@@ -403,7 +402,7 @@ def reconstruct(groups, entry_prev, h: int, w: int, nbands: int, order: int,
     lane_of = _lane_of(order)
     if h % B == 0 and w % B == 0:
         # aligned: static inverse curve permutation + layout transposes
-        inv = torch.as_tensor(lane_of.reshape(-1), device=groups.device)
+        inv = table(tuple(lane_of.reshape(-1).tolist()), groups.device)
         t = v[:, :, inv].reshape(h // B, w // B, nbands, B, B)
         img = t.permute(0, 3, 1, 4, 2).reshape(h, w, nbands)
     else:

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..constants import B, B2, curve_offsets, ubits_for
-from .bitutils import mags, srl, step_flip_index, topbit, wrap
+from .bitutils import mags, srl, step_flip_index, table, topbit, wrap
 
 
 def block_origins(size: int) -> np.ndarray:
@@ -45,7 +45,7 @@ def gather_blocks(img, order: int, cband: tuple[int, ...], tbits: int):
     offs = curve_offsets(order)
     if h % B == 0 and w % B == 0:
         # aligned: blocks tile the image; the curve is a lane permutation
-        perm = torch.tensor([dy * B + dx for dy, dx in offs], device=img.device)
+        perm = table(tuple(dy * B + dx for dy, dx in offs), img.device)
         t = img.reshape(*lead, h // B, B, w // B, B, nb)
         n = len(lead)
         t = t.permute(*range(n), n, n + 2, n + 4, n + 1, n + 3)
@@ -60,9 +60,8 @@ def gather_blocks(img, order: int, cband: tuple[int, ...], tbits: int):
         flat = torch.as_tensor((iy * w + ix).reshape(-1), device=img.device)
         vals = img.reshape(*lead, h * w, nb)[..., flat, :]
         vals = vals.reshape(*lead, -1, B2, nb).transpose(-1, -2)
-    cb = np.asarray(cband)
-    core = vals[..., torch.as_tensor(cb, device=img.device), :]
-    dep = torch.as_tensor(cb != np.arange(nb), device=img.device).to(torch.int64)
+    core = vals[..., table(tuple(int(c) for c in cband), img.device), :]
+    dep = table(tuple(int(c != i) for i, c in enumerate(cband)), img.device)
     return wrap(vals - core * dep[:, None], tbits)
 
 

@@ -6,6 +6,8 @@ and P1-P7 (the Mosaic probes) of
 qb3_tpu_torch against their plain PyTorch twins (K1 also at the best modes'
 symbol counts), and the public decode (best-mode streams included), the
 best modes' phase A, encode, batches and strips and the strips on the card
+against the CPU's, and the serving paths (the pipelined encode and decode
+on CUDA streams, the bulk decode of streams without a sidecar) on the card
 against the CPU's.
 
 Every test needs a CUDA device and skips without one.  This file imports
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 import qb3_tpu_torch as qt
-from qb3_tpu_torch import container, probes
+from qb3_tpu_torch import container, foreign, pipeline, probes
 from qb3_tpu_torch.api import (_fused_ix_params, default_cband, ic_inputs, padded_words,
                                stream_words, to_carrier)
 from qb3_tpu_torch.batch import _flat_tile_layout
@@ -771,3 +773,64 @@ def test_p1_refuses_what_its_kernel_does_not_take(cuda):
         with pytest.raises(err):
             probe_cuda.dim0_dot(*args)
         assert probe_cuda.dim0_dot.launches == before
+
+
+def _pipeline_batches(seed, n=3, nbatches=3):
+    return [np.stack([headline_image(64, 64, 3, seed=seed + 10 * b + i) for i in range(n)])
+            for b in range(nbatches)]
+
+
+@pytest.mark.parametrize("index", [False, True, "ic"], ids=["none", "ix", "ic"])
+@pytest.mark.parametrize("mode", [Mode.FTL, Mode.BASE_Z])
+def test_cuda_pipeline_equals_cpu(cuda, mode, index):
+    """The pipelined encode on the card's streams writes the CPU's bytes,
+    and the pipelined decode returns the tiles."""
+    batches = _pipeline_batches(seed=int(mode))
+    before = pack_cuda.pack_groups_chunked.launches
+    got = list(pipeline.encode_tiles_pipelined(iter(batches), mode=mode, index=index,
+                                               device=cuda))
+    assert pack_cuda.pack_groups_chunked.launches == before + 3
+    assert got == list(pipeline.encode_tiles_pipelined(iter(batches), mode=mode, index=index,
+                                                       device="cpu"))
+    if index:
+        for d, b in zip(pipeline.decode_tiles_pipelined(iter(got), device=cuda), batches):
+            np.testing.assert_array_equal(d, b)
+
+
+def test_cuda_pipeline_fetch_cap_fallback(cuda):
+    """A noisy third batch passes the cap learned from a smooth first one."""
+    rng = np.random.default_rng(3)
+    smooth = np.zeros((2, 64, 64, 1), np.uint8)
+    noisy = (rng.integers(0, 2, (2, 64, 64, 1)) * 120
+             + rng.integers(0, 60, (2, 64, 64, 1))).astype(np.uint8)
+    batches = [smooth, smooth, noisy]
+    got = list(pipeline.encode_tiles_pipelined(iter(batches), index="ic", device=cuda))
+    assert got == list(pipeline.encode_tiles_pipelined(iter(batches), index="ic",
+                                                       device="cpu"))
+
+
+def test_cuda_pipeline_ib_decode_equals_cpu(cuda):
+    batches = _pipeline_batches(seed=500, n=2)
+    streams = [qt.encode_tiles(b, mode=Mode.CF_H, index=True, device=cuda) for b in batches]
+    for d, c, b in zip(pipeline.decode_tiles_pipelined(iter(streams), device=cuda),
+                       pipeline.decode_tiles_pipelined(iter(streams), device="cpu"), batches):
+        np.testing.assert_array_equal(d, c)
+        np.testing.assert_array_equal(d, b)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("mode", [Mode.FTL, Mode.RLE_H, Mode.CF_H])
+def test_cuda_foreign_decode_equals_cpu(cuda, mode, dtype):
+    """Streams without a sidecar, walked in a thread pool, decoded by K7 and
+    K5 on the card: the CPU's arrays, one batch and pipelined."""
+    tiles = [headline_image(64, 64, 3, seed=600 + i, dtype=dtype) for i in range(4)]
+    streams = [qt.encode(t, mode=mode, device=cuda) for t in tiles]
+    t, np_dt = foreign.decode_streams(streams, device=cuda)
+    assert t.is_cuda
+    np.testing.assert_array_equal(t.cpu().numpy().view(np_dt), np.stack(tiles))
+    c, _ = foreign.decode_streams(streams, workers=1, device="cpu")
+    np.testing.assert_array_equal(t.cpu().numpy(), c.numpy())
+    batches = [streams[:2], streams[2:], streams[1:3]]
+    for d, b in zip(foreign.decode_streams_pipelined(iter(batches), device=cuda),
+                    ([tiles[0], tiles[1]], [tiles[2], tiles[3]], [tiles[1], tiles[2]])):
+        np.testing.assert_array_equal(d, np.stack(b))

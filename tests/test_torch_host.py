@@ -154,7 +154,9 @@ def test_import_loads_no_jax():
             "qb3_tpu_torch._build, qb3_tpu_torch.ops.chunkwalk_cuda, "
             "qb3_tpu_torch.ops.pack_cuda, qb3_tpu_torch.ops.gather_cuda, "
             "qb3_tpu_torch.ops.place_cuda, qb3_tpu_torch.stitch, qb3_tpu_torch.strip, "
-            "qb3_tpu_torch.native, qb3_tpu_torch.offsets; "
+            "qb3_tpu_torch.native, qb3_tpu_torch.offsets, qb3_tpu_torch.pipeline, "
+            "qb3_tpu_torch.foreign, qb3_tpu_torch.profiling, qb3_tpu_torch.pngio, "
+            "qb3_tpu_torch.cli, qb3_tpu_torch.lite; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'qb3_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
@@ -172,7 +174,8 @@ class _FakeProfile:
         from types import SimpleNamespace
 
         evs = [SimpleNamespace(device_type=d, name=n,
-                               time_range=SimpleNamespace(elapsed_us=lambda us=us: us))
+                               time_range=SimpleNamespace(elapsed_us=lambda us=us: us,
+                                                          start=0, end=us))
                for d, n, us in next(self.takes)]
         return nullcontext(SimpleNamespace(events=lambda: evs))
 
@@ -221,3 +224,13 @@ def test_device_profile_retakes_profiles_that_lost_records(lost, monkeypatch):
         return
     assert p["lost"] == 0 and p["ops"] == 2 and p["top"] == "walk"
     assert p["per_op"] == pytest.approx({"walk": 0.04, "Memset (Device)": 0.002})
+
+
+def test_device_profile_active_time_is_the_union_of_records():
+    """active_ms counts the time at least one device record ran: overlaps
+    between streams once, gaps not at all."""
+    from qb3_tpu_torch.benchutil import _union_ms
+
+    assert _union_ms([]) == 0
+    assert _union_ms([(0, 10), (5, 20), (30, 40), (32, 35)]) == pytest.approx(0.030)
+    assert _union_ms([(30, 40), (0, 10), (10, 12)]) == pytest.approx(0.022)
