@@ -92,11 +92,22 @@ on P1-P7.  Phases, each printed on earlier lines:
      peak device memory); the Landsat sample's decode
      host to host, split the same way, with a device profile; the probes'
      path with all seven names, in this process (launch counts) and as
-     `python -m qb3_tpu_torch.probes` (an OK line per probe).
+     `python -m qb3_tpu_torch.probes` (an OK line per probe);
+  6. the serving paths (pipeline.py, foreign.py, cli.py; serving_phase);
+  7. the sharded paths (parallel/sharded.py; sharded_phase), 4 shards on
+     the one card: encode_sharded of the u8 scene ("ic", "ix", none, BASE_H
+     "ix"), the fast and scatter stitches, and the u16 raster in CF_H "ib",
+     each equal to the single-device encode; the headline over 2, 4 and 8
+     shards, the best headline and the four wide rasters to their sha256
+     pins; the sharded "ix", "ic" and "ib" decodes equal to their scenes; the
+     2-D mesh of the 128 tiles over 2 x 2 shards equal to the single-device
+     payloads; the group's bytes a call, host-to-host MB/s beside the single
+     device (3 runs in turns), the idle share and the peak device memory.
 
-Launch counts are set to 0 just before each main path and read just after;
-each kernel's count in the result is from the path that runs it, summed
-over the "ix", walk, strip and best paths for K5a, K5b and K7.  The line
+Launch counts are set to 0 just before each main path and read just after,
+every twin refused in phases 6 and 7; each kernel's count in the result is
+from the paths that run it, summed over the "ix", walk, strip, best,
+serving and sharded paths.  The line
 also holds K1 at the best modes' symbol counts as two entries of their own
 (BEST_K1), their launches counted on the best paths.  Any
 failure exits non-zero and prints no result.  The line before the last is
@@ -1859,13 +1870,19 @@ def rates_text(r: list) -> str:
 
 
 class stage_times(dict):
-    """Within the block, the host ms spent in each stage of pipeline.py and
+    """Within the block, the host ms spent in each stage, summed over a
+    run: targets, a list of (module or class, function name, stage), names
+    the functions timed; by default the stages of pipeline.py and
     foreign.py, summed over a run's batches: plan (checks, sidecar parses,
     the flat layout; foreign's walks), layout (foreign's flat layout),
     inputs (the upload stage's host work), put (page-locked staging and the
     upload's enqueue), dispatch (the device work's enqueue), fetch (the
     page-locked buffers and the copies' enqueue), wait (on the fetch
     events) and finish (containers or arrays)."""
+
+    def __init__(self, targets=None):
+        super().__init__()
+        self.targets = targets
 
     def __enter__(self):
         import functools
@@ -1882,21 +1899,22 @@ class stage_times(dict):
                     self[name] = self.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
             return wrapper
 
-        self.saved = [(m, n, m.__dict__[n]) for m, n in (
+        names = {"_plan": "plan", "plan_decode": "plan", "plan_streams": "plan",
+                 "flat_plan": "layout", "decode_inputs": "inputs", "upload_tiles": "inputs",
+                 "encode_dispatch": "dispatch", "decode_dispatch": "dispatch",
+                 "encode_finish": "finish", "decode_finish": "finish"}
+        targets = self.targets or [(m, n, names.get(n, n)) for m, n in (
             (pipeline, "_plan"), (pipeline, "plan_decode"), (pipeline, "decode_inputs"),
             (pipeline, "upload_tiles"), (pipeline, "encode_dispatch"),
             (pipeline, "decode_dispatch"), (pipeline, "encode_finish"),
             (pipeline, "decode_finish"), (foreign, "plan_streams"), (foreign, "flat_plan"),
             (pipeline.Lanes, "put"), (pipeline.Lanes, "fetch"), (pipeline.Lanes, "wait"))]
-        names = {"_plan": "plan", "plan_decode": "plan", "plan_streams": "plan",
-                 "flat_plan": "layout", "decode_inputs": "inputs", "upload_tiles": "inputs",
-                 "encode_dispatch": "dispatch", "decode_dispatch": "dispatch",
-                 "encode_finish": "finish", "decode_finish": "finish"}
-        for m, n, fn in self.saved:
+        self.saved = [(m, n, m.__dict__[n]) for m, n, _ in targets]
+        for (m, n, fn), (_, _, stage) in zip(self.saved, targets):
             if isinstance(fn, staticmethod):
-                setattr(m, n, staticmethod(timed(n, fn.__func__)))
+                setattr(m, n, staticmethod(timed(stage, fn.__func__)))
             else:
-                setattr(m, n, timed(names.get(n, n), fn))
+                setattr(m, n, timed(stage, fn))
         return self
 
     def __exit__(self, *exc):
@@ -1904,11 +1922,11 @@ class stage_times(dict):
             setattr(m, n, fn)
 
 
-def stage_line(label: str, fn, card: str):
+def stage_line(label: str, fn, card: str, targets=None):
     """One run of fn with its stages' host ms (stage_times)."""
     import torch
 
-    with stage_times() as ms:
+    with stage_times(targets) as ms:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -2146,6 +2164,194 @@ def serving_phase(dev, card, kernels) -> dict:
         check(m.mbps > 0, "profiling.meter gave no rate")
     log(f"cli on the card: u8 .npy (FTL, -b, --index, -q +4), 16-bit RGB PNG, a folder; "
         f"--trace names {found}; profiling.meter {m.mbps:.2f} MB/s host to host ({card})")
+    return launches
+
+
+SHARDS = 4  # phase 7: shards on the one card (devices=["cuda:0"] * SHARDS)
+
+
+def sharded_phase(dev, card, kernels, scases, img, tiles, wide_imgs) -> dict:
+    """Phase 7, the sharded paths (parallel/sharded.py), SHARDS shards on
+    one card unless named, each main path with the launch counts and the
+    group's bytes set to 0 just before and read just after and every twin
+    refused:
+      * encode_sharded of the u8 4096x4096x3 FTL scene with "ic", "ix" and
+        no sidecar, and in BASE_H with "ix", each byte-equal to the
+        single-device encode; encode_fast_sharded_scatter equal to
+        encode_fast_sharded;
+      * the headline tile over 2, 4 and 8 shards with "ic" to
+        HEADLINE_SHA256, in CF_H with "ib" to BEST_HEADLINE_SHA256["ib"],
+        and the four wide rasters with "ix" to WIDE_SHA256;
+      * the u16 4096x4096x1 scene in CF_H with "ib", byte-equal to the
+        single-device encode;
+      * decode_fast_sharded of the u8 scene's "ix" and "ic" streams and of
+        the u16 scene's "ib" stream, each equal to its scene;
+      * encode_tiles_sharded of the 128 u8 512x512x3 tiles over 2 x 2
+        shards, each payload the single-device encode's (core bands 0, 1,
+        2);
+    then host-to-host MB/s of the sharded encodes and decodes beside the
+    single-device ones (3 runs in turns), the device's idle share and the
+    peak device memory of each.  Returns the launch counts, kernel name ->
+    count."""
+    import torch
+
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import container
+    from qb3_tpu_torch.benchutil import (BEST_HEADLINE_SHA256, HEADLINE_SHA256, WIDE_SHA256,
+                                         device_profile)
+    from qb3_tpu_torch.constants import Mode
+    from qb3_tpu_torch.parallel import sharded
+    from qb3_tpu_torch.parallel.sharded import ShardGroup
+
+    one = torch.device("cuda", torch.cuda.current_device())
+
+    def cards(n=SHARDS):
+        return [one] * n
+
+    scene8 = scases["u8 4096x4096x3 FTL"][0]
+    scene16 = scases["u16 4096x4096x1 BASE_H"][0]
+    t0 = time.perf_counter()
+    ref = {index: qt.encode(scene8, index=index, device=dev) for index in ("ic", True, False)}
+    ref["BASE_H"] = qt.encode(scene8, mode=Mode.BASE_H, index=True, device=dev)
+    best16 = qt.encode(scene16, mode=Mode.CF_H, index=True, device=dev)
+    mesh_ref = []
+    for t in tiles:
+        s = qt.encode(t, coreband=[0, 1, 2], device=dev)
+        mesh_ref.append(s[container.parse_headers(s).data_offset:])
+    log(f"sharded references: the single-device encodes in {time.perf_counter() - t0:.2f} s")
+    launches = {}
+
+    def counted(label, fn, want: dict, calls: int = 1):
+        """fn() with the launch counts and the group's bytes set to 0 just
+        before and read just after, the twins refused and the peak device
+        memory taken."""
+        out = {}
+        reset(kernels)
+        ShardGroup.bytes_moved = 0
+        with no_twins():
+            peak = peak_bytes(lambda: out.update(v=fn()))
+        got = {k: f.launches for k, f in kernels.items() if f.launches}
+        log(f"launch counts on the sharded {label} path: {got}; the group moved "
+            f"{ShardGroup.bytes_moved / calls:.0f} B a call ({calls} calls); peak device "
+            f"memory {peak / 2**20:.1f} MiB ({card})")
+        check(got == want, f"sharded {label}: launches {got}, want {want}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        return out["v"]
+
+    def scene_encodes():
+        out = {index: sharded.encode_sharded(scene8, SHARDS, index=index, devices=cards())
+               for index in ("ic", True, False)}
+        out["BASE_H"] = sharded.encode_sharded(scene8, SHARDS, mode=Mode.BASE_H, index=True,
+                                               devices=cards())
+        fast = sharded.encode_fast_sharded(scene8, SHARDS, cband=(1, 1, 1), devices=cards())
+        scatter = sharded.encode_fast_sharded_scatter(scene8, SHARDS, cband=(1, 1, 1),
+                                                      devices=cards())
+        return out, fast, scatter
+
+    got, fast, scatter = counted("u8 4096x4096x3 encode (ic, ix, none, BASE_H ix, fast, "
+                                 "scatter)", scene_encodes,
+                                 {"pack_groups_chunked": 6 * SHARDS}, calls=6)
+    for k, s in got.items():
+        check(s == ref[k], f"sharded u8 scene {k}: the stream differs from the single "
+                           "device's")
+    check(fast[0] == scatter[0] == ref[False][container.parse_headers(ref[False]).data_offset:],
+          "sharded u8 scene: encode_fast_sharded, the scatter stitch and the single-device "
+          "payload differ")
+    log(f"sharded u8 4096x4096x3 over {SHARDS} shards: ic, ix, no sidecar and BASE_H ix "
+        "streams equal the single-device encode's; fast == scatter")
+
+    def pins():
+        out = {n: sharded.encode_sharded(img, n, index="ic", devices=cards(n))
+               for n in (2, 4, 8)}
+        out["best"] = sharded.encode_sharded(img, SHARDS, mode=Mode.CF_H, index=True,
+                                             devices=cards())
+        for label, x in wide_imgs.items():
+            out[label] = sharded.encode_sharded(x, SHARDS, index=True, devices=cards())
+        return out
+
+    got = counted("pins (headline 2 / 4 / 8 shards, best headline, 4 wide)", pins,
+                  {"pack_groups_chunked": 14 + 5 * SHARDS, "place_slabs": 1}, calls=8)
+    for n in (2, 4, 8):
+        sha = hashlib.sha256(got[n]).hexdigest()
+        check(sha == HEADLINE_SHA256, f"sharded headline over {n}: sha256 {sha}")
+    sha = hashlib.sha256(got["best"]).hexdigest()
+    check(sha == BEST_HEADLINE_SHA256["ib"], f"sharded best headline ib: sha256 {sha}")
+    for label in wide_imgs:
+        sha = hashlib.sha256(got[label]).hexdigest()
+        check(sha == WIDE_SHA256[label], f"sharded wide {label} ix: sha256 {sha}")
+    log("sharded pins: the headline over 2, 4 and 8 shards (ic), the best headline (CF_H ib) "
+        "and the four wide ix streams match qb3_tpu's sha256s")
+
+    got = counted("u16 4096x4096x1 CF_H ib encode", lambda: sharded.encode_sharded(
+        scene16, SHARDS, mode=Mode.CF_H, index=True, devices=cards()),
+        {"pack_groups_chunked": SHARDS, "place_slabs": 1})
+    check(got == best16, "sharded u16 scene CF_H ib: the stream differs from the single "
+                         "device's")
+    check(container.parse_headers(got).index_best is not None, "u16 scene: no ib sidecar")
+
+    streams = {"u8 ix": (ref[True], scene8, {"gather_slabs": SHARDS, "wavefront8": SHARDS}),
+               "u8 ic": (ref["ic"], scene8, {"extract_windows": SHARDS,
+                                             "chunkwalk8": SHARDS}),
+               "u16 CF_H ib": (best16, scene16, {"gather_slabs": SHARDS,
+                                                 "wavefront_wide": SHARDS})}
+    for label, (s, x, want) in streams.items():
+        out = counted(f"{label} decode", lambda s=s: sharded.decode_fast_sharded(
+            s, SHARDS, devices=cards()), want)
+        check(np.array_equal(out, x), f"sharded {label} decode")
+    log(f"sharded decodes over {SHARDS} shards: the u8 scene's ix and ic streams and the u16 "
+        "scene's CF_H ib stream equal their scenes")
+
+    got = counted(f"2-D mesh ({BATCH} tiles, 2 x 2)", lambda: sharded.encode_tiles_sharded(
+        tiles, 2, 2, devices=cards(4)), {"pack_groups_chunked": 4, "place_slabs": BATCH})
+    check(got == mesh_ref, "2-D mesh: a payload differs from the single-device encode's")
+    log(f"2-D mesh: {BATCH} u8 512x512x3 tiles over 2 x 2 shards equal the single-device "
+        "payloads")
+
+    # one run's host ms by stage: the uploads, the shards' run (their device
+    # work's enqueue and the collectives' waits), the downloads, the host
+    # assembly or K6 stitch, the shard windows and "ib" group inputs
+    stages = [(sharded, "to_carrier", "upload"), (ShardGroup, "run", "run"),
+              (sharded, "_host", "download"), (sharded, "from_carrier", "download"),
+              (sharded, "assemble_scatter", "assemble"),
+              (sharded, "stitch_words_device", "stitch"),
+              (sharded, "_shard_windows", "windows"), (sharded, "group_inputs", "inputs")]
+    stage_line(f"sharded u8 4096x4096x3 ic encode ({SHARDS} shards)",
+               lambda: sharded.encode_sharded(scene8, SHARDS, index="ic", devices=cards()),
+               card, stages)
+    stage_line(f"sharded u16 4096x4096x1 CF_H ib encode ({SHARDS} shards)",
+               lambda: sharded.encode_sharded(scene16, SHARDS, mode=Mode.CF_H, index=True,
+                                              devices=cards()), card, stages)
+    stage_line(f"sharded u8 4096x4096x3 ix decode ({SHARDS} shards)",
+               lambda: sharded.decode_fast_sharded(ref[True], SHARDS, devices=cards()), card,
+               stages)
+
+    # host to host, sharded beside one device, in turns
+    pairs = {
+        "u8 4096x4096x3 ic encode": (scene8.nbytes, lambda: sharded.encode_sharded(
+            scene8, SHARDS, index="ic", devices=cards()),
+            lambda: qt.encode(scene8, index="ic", device=dev)),
+        "u8 4096x4096x3 ic decode": (scene8.nbytes, lambda: sharded.decode_fast_sharded(
+            ref["ic"], SHARDS, devices=cards()), lambda: qt.decode(ref["ic"], device=dev)),
+        "u8 4096x4096x3 ix decode": (scene8.nbytes, lambda: sharded.decode_fast_sharded(
+            ref[True], SHARDS, devices=cards()), lambda: qt.decode(ref[True], device=dev)),
+        "u16 4096x4096x1 CF_H ib encode": (scene16.nbytes, lambda: sharded.encode_sharded(
+            scene16, SHARDS, mode=Mode.CF_H, index=True, devices=cards()),
+            lambda: qt.encode(scene16, mode=Mode.CF_H, index=True, device=dev)),
+        "u16 4096x4096x1 CF_H ib decode": (scene16.nbytes, lambda: sharded.decode_fast_sharded(
+            best16, SHARDS, devices=cards()), lambda: qt.decode(best16, device=dev)),
+    }
+    for label, (nbytes, shard_fn, one_fn) in pairs.items():
+        rates = in_turns({"sharded": shard_fn, "one device": one_fn}, nbytes / 1e6)
+        r_s, r_1 = rates["sharded"], rates["one device"]
+        log(f"host-to-host {label}: {SHARDS} shards {rates_text(r_s)}, one device "
+            f"{rates_text(r_1)}, ratio {r_s[len(r_s) // 2] / r_1[len(r_1) // 2]:.3f} ({card})")
+        for name, fn in (("sharded", shard_fn), ("one device", one_fn)):
+            p = device_profile(fn, 1)
+            log(f"profile {label} {name}: wall {p['wall_ms']:.4f} ms, device active "
+                f"{p['active_ms']:.4f} ms, idle share {p['active_idle']:.3f}, {p['ops']:.0f} "
+                f"device ops, lost {p['lost']}; peak device memory "
+                f"{peak_bytes(fn) / 2**20:.1f} MiB ({card})")
     return launches
 
 
@@ -2436,6 +2642,12 @@ def main() -> int:
     log("# phase 6: serving paths")
     for k, n in serving_phase(dev, card, kernels).items():
         launches[k] = launches.get(k, 0) + n
+
+    log("# phase 7: sharded paths")
+    t0 = time.perf_counter()
+    for k, n in sharded_phase(dev, card, kernels, scases, img, tiles, wide_imgs).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"phase 7 took {time.perf_counter() - t0:.2f} s")
 
     def entry(name: str, kernel: str, n: int) -> dict:
         """The kernels line's entry of kres[name], a run of KERNELS[kernel]

@@ -11,12 +11,12 @@ module on machines without nvcc.
 from __future__ import annotations
 
 import ctypes
-import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -89,7 +89,7 @@ def build() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     objs = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
     procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -111,18 +111,27 @@ def build() -> str:
     return lib
 
 
-@functools.cache
+_LOCK = threading.Lock()  # one build and one load, whichever thread comes first
+_LIB = None
+
+
 def load() -> ctypes.PyDLL:
     """The kernel library, built on first call, with every entry point's
     argument types set.  Loaded as a PyDLL, whose calls keep the GIL: an
     entry point only enqueues a launch, and releasing and taking back the
-    GIL would add to every launch's host time."""
-    lib = ctypes.PyDLL(build())
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    GIL would add to every launch's host time.  Safe to call from several
+    threads at once (the shards of parallel/sharded.py): the first builds
+    and loads under a lock, the others wait for it."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.PyDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
 
 
 class Kernel:

@@ -225,7 +225,8 @@ def pcf_scan(is_set, set_val, entry_cf):
 
 
 def encode_best_blocks(img, entry_prev, entry_runbits, entry_cf, order: int,
-                       cband: tuple[int, ...], tbits: int):
+                       cband: tuple[int, ...], tbits: int, cf_exchange=None,
+                       prev_exchange=None, rung_exchange=None):
     """Phase A of the best encoder.
 
     img: (..., H, W, C) int64 carrier of tbits-wide unsigned values;
@@ -237,11 +238,26 @@ def encode_best_blocks(img, entry_prev, entry_runbits, entry_cf, order: int,
     0), post_runbits (..., nblocks, C) (the runbits a decoder holds after
     each block, for "ic" anchors) and pcf_in (..., nblocks, C) (the biased
     CF state before each block).
+
+    A sharded caller (parallel/sharded.py) brings in the band state at its
+    strip's start through three hooks, as qb3_tpu's does, each a function
+    of shard-local data and the shards' collectives: prev_exchange(vals) ->
+    (C,) entry_prev; rung_exchange(exit_runbits) -> (C,) entry runbits
+    (a strip's exit rung does not depend on its entry rung);
+    cf_exchange(is_set, set_val) -> (C,) entry pcf ("last CF set wins"
+    across shards: the set decisions do not depend on the entry pcf).
+    Without hooks the entry state is the arguments'.
     """
     ubits = ubits_for(tbits // 8)
     vals = gather_blocks(img, order, cband, tbits)
+    if prev_exchange is not None:
+        entry_prev = prev_exchange(vals)
     m, exit_prev = delta_mags(vals, entry_prev, tbits)
     bitsused, rung, oldrung, exit_runbits = block_rungs(m, entry_runbits)
+    if rung_exchange is not None:
+        entry_runbits = rung_exchange(exit_runbits)
+        oldrung = torch.cat([entry_runbits[..., None, :].to(torch.int64), rung[..., :-1, :]],
+                            dim=-2)
     rung0 = (bitsused & ~1) == 0  # bitsused <= 1, unsigned
     active = ~rung0
 
@@ -265,6 +281,8 @@ def encode_best_blocks(img, entry_prev, entry_runbits, entry_cf, order: int,
     # ---- pcf chain: a block keeps the state where the index trial would win
     # against the different-CF candidate, else sets it to cf - 2
     is_set = active & has_cf & ~win_diff
+    if cf_exchange is not None:
+        entry_cf = cf_exchange(is_set, cfd["cfm"])
     pcf_in, exit_cf = pcf_scan(is_set, cfd["cfm"], entry_cf)
     same = pcf_in == cfd["cfm"]
     use_cf = active & has_cf

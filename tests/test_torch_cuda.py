@@ -6,9 +6,11 @@ and P1-P7 (the Mosaic probes) of
 qb3_tpu_torch against their plain PyTorch twins (K1 also at the best modes'
 symbol counts), and the public decode (best-mode streams included), the
 best modes' phase A, encode, batches and strips and the strips on the card
-against the CPU's, and the serving paths (the pipelined encode and decode
+against the CPU's, the serving paths (the pipelined encode and decode
 on CUDA streams, the bulk decode of streams without a sidecar) on the card
-against the CPU's.
+against the CPU's, and the sharded encodes and decodes (parallel/sharded.py)
+with 2-8 shards on one card against the single-device path and the CPU's
+shards, the kernels' launches counted with every twin refused.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither jax nor qb3_tpu, so it also runs on a machine without JAX:
@@ -46,6 +48,7 @@ from qb3_tpu_torch.ops.place_cuda import place_slabs, place_slabs_plain
 from qb3_tpu_torch.stitch import stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
+from qb3_tpu_torch.parallel import sharded
 
 from . import k5_edges, p1_cases, pack_edges, walk_edges
 
@@ -834,3 +837,128 @@ def test_cuda_foreign_decode_equals_cpu(cuda, mode, dtype):
     for d, b in zip(foreign.decode_streams_pipelined(iter(batches), device=cuda),
                     ([tiles[0], tiles[1]], [tiles[2], tiles[3]], [tiles[1], tiles[2]])):
         np.testing.assert_array_equal(d, np.stack(b))
+
+
+# ------------------------------------------------ sharded (parallel/sharded.py)
+
+_TWINS = (("wavefront_cuda", "wavefront8_plain"), ("wavefront_cuda", "wavefront_wide_plain"),
+          ("gather_cuda", "gather_slabs_plain"), ("pack_cuda", "pack_groups"),
+          ("pack_cuda", "extract_windows_plain"), ("chunkwalk_cuda", "chunkwalk8_plain"),
+          ("fusedwin_cuda", "wavefront_fused_plain"), ("encode_cuda", "encode_pack_image_plain"),
+          ("place_cuda", "place_slabs_plain"))
+_SHARD_KERNELS = {"K1": pack_cuda.pack_groups_chunked, "K2": chunkwalk8,
+                  "K3": pack_cuda.extract_windows, "K5a": wavefront8, "K5b": wavefront_wide,
+                  "K6": place_slabs, "K7": gather_slabs}
+
+
+class no_twins:
+    """Within the block, every kernel's plain twin raises: the path inside
+    runs on the kernels alone."""
+
+    def __enter__(self):
+        import importlib
+
+        def refuse(*_, **__):
+            raise AssertionError("a twin ran on the card's path")
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (importlib.import_module(f"qb3_tpu_torch.ops.{mod}"), name) for mod, name in _TWINS)]
+        for m, n, _ in self.saved:
+            setattr(m, n, refuse)
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def _launches():
+    return {k: fn.launches for k, fn in _SHARD_KERNELS.items()}
+
+
+def _ran(before):
+    return {k for k, n in _launches().items() if n > before[k]}
+
+
+_SHARD_IMAGES = {"u8 64x96x3": lambda: headline_image(64, 96, 3, seed=700),
+                 "u16 256x128x1": lambda: headline_image(256, 128, 1, seed=701,
+                                                         dtype=np.uint16)}
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("label", list(_SHARD_IMAGES))
+@pytest.mark.parametrize("mode,index", [(Mode.FTL, "ic"), (Mode.FTL, True),
+                                        (Mode.BASE_H, False), (Mode.CF_H, True),
+                                        (Mode.RLE_H, False)],
+                         ids=["ftl-ic", "ftl-ix", "base-h", "cf-h-ib", "rle-h"])
+def test_cuda_sharded_encode_equals_single_and_cpu(cuda, n, label, mode, index):
+    """encode_sharded with n shards on one card: the bytes of the port's
+    single-device encode on the card and of the CPU's shards; K1 a shard
+    (the best modes also K6), and the sharded decode of the sidecar streams
+    back to the raster (K3 + K2 or K7 + K5), with every twin refused."""
+    img = _SHARD_IMAGES[label]()
+    before = _launches()
+    with no_twins():
+        s = sharded.encode_sharded(img, n, mode=mode, index=index, devices=["cuda:0"] * n)
+    want = {"K1", "K6"} if is_best_mode(mode) else {"K1"}
+    assert _ran(before) == want
+    assert s == qt.encode(img, mode=mode, index=index, device=cuda)
+    assert s == sharded.encode_sharded(img, n, mode=mode, index=index, devices=["cpu"] * n)
+    if index:
+        before = _launches()
+        with no_twins():
+            out = sharded.decode_fast_sharded(s, n, devices=["cuda:0"] * n)
+        np.testing.assert_array_equal(out, img)
+        np.testing.assert_array_equal(out, sharded.decode_fast_sharded(s, n,
+                                                                       devices=["cpu"] * n))
+        wide = "K5a" if img.itemsize == 1 else "K5b"
+        assert _ran(before) == ({"K3", "K2"} if index == "ic" else {"K7", wide})
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_cuda_sharded_fast_and_scatter_equal_cpu(cuda, n):
+    img = headline_image(128, 64, 3, seed=710)
+    with no_twins():
+        got = sharded.encode_fast_sharded(img, n, cband=(1, 1, 1), devices=["cuda:0"] * n)
+        sc = sharded.encode_fast_sharded_scatter(img, n, cband=(1, 1, 1),
+                                                 devices=["cuda:0"] * n)
+    cpu = sharded.encode_fast_sharded(img, n, cband=(1, 1, 1), devices=["cpu"] * n)
+    assert got[0] == sc[0] == cpu[0]
+    np.testing.assert_array_equal(got[1], cpu[1])
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+def test_cuda_sharded_wide_types(cuda, dtype):
+    """u32 / u64: the sharded "ix" and "ib" decodes (K7 + K5b) and the "ic"
+    decode (the plain chunk walk, as in qb3_tpu) on the card."""
+    img = headline_image(64, 64, 1, seed=720, dtype=dtype)
+    for mode, index in ((Mode.FTL, True), (Mode.FTL, "ic"), (Mode.CF_H, True)):
+        with no_twins():
+            s = sharded.encode_sharded(img, 4, mode=mode, index=index, devices=["cuda:0"] * 4)
+            out = sharded.decode_fast_sharded(s, 4, devices=["cuda:0"] * 4)
+        assert s == qt.encode(img, mode=mode, index=index, device=cuda)
+        np.testing.assert_array_equal(out, img)
+
+
+def test_cuda_sharded_2d_mesh(cuda):
+    tiles = np.stack([headline_image(32, 64, 3, seed=730 + i) for i in range(8)])
+    before = _launches()
+    with no_twins():
+        got = sharded.encode_tiles_sharded(tiles, 2, 2, devices=["cuda:0"] * 4)
+    assert _ran(before) == {"K1", "K6"}
+    assert got == sharded.encode_tiles_sharded(tiles, 2, 2, devices=["cpu"] * 4)
+    for t, p in zip(tiles, got):
+        s = qt.encode(t, coreband=[0, 1, 2], device=cuda)
+        assert p == s[container.parse_headers(s).data_offset:]
+
+
+def test_cuda_stitch_streams_and_dryrun(cuda):
+    rng = np.random.default_rng(740)
+    words = rng.integers(0, 1 << 32, (4, 8), dtype=np.uint64).astype(np.uint32)
+    totals = np.array([3, 0, 256, 77], np.int64)
+    before = _launches()
+    with no_twins():
+        got, _ = sharded.stitch_streams(words, totals, devices=["cuda:0"] * 4)
+    assert _ran(before) == {"K6"}
+    assert got == sharded.stitch_streams(words, totals, devices=["cpu"] * 4)[0]
+    sharded.dryrun_multichip(4, ["cuda:0"] * 4)
+    sharded.dryrun_multichip(8, ["cuda:0"] * 8)

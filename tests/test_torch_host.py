@@ -137,7 +137,7 @@ def test_kernels_bind_once_at_first_launch():
             "if isinstance(v, _build.Kernel)]; "
             "assert sorted(k.name for k in ks) == sorted(_build.SIGNATURES), ks; "
             "assert all(k.fn is None for k in ks); "
-            "assert _build.load.cache_info().currsize == 0")
+            "assert _build._LIB is None")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
     from qb3_tpu_torch import _build
 
@@ -149,6 +149,55 @@ def test_kernels_bind_once_at_first_launch():
         k(1, 2)
 
 
+def test_load_builds_once_from_many_threads(monkeypatch):
+    """Sixteen threads (more than this machine's cores) that reach
+    _build.load at once, with a short switch interval (the shards of
+    parallel/sharded.py at their first kernel), build and load the library
+    once, under the module's lock, and all get the same handle."""
+    import ctypes
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    from qb3_tpu_torch import _build
+
+    builds, opened = [], []
+
+    def build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)  # a slow build: the other threads arrive meanwhile
+        return "libfake.so"
+
+    def open_lib(path):
+        opened.append(path)
+        return SimpleNamespace(**{name: SimpleNamespace() for name in _build.SIGNATURES})
+
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(ctypes, "PyDLL", open_lib)
+    start = threading.Barrier(16)
+    got = []
+
+    def worker():
+        start.wait()
+        got.append(_build.load())
+
+    threads = [threading.Thread(target=worker) for _ in range(16)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert len(builds) == 1 and opened == ["libfake.so"]
+    assert len(got) == 16 and all(g is got[0] for g in got)
+    assert got[0].qb3_pack_groups.restype is ctypes.c_int
+
+
 def test_import_loads_no_jax():
     code = ("import sys, qb3_tpu_torch, qb3_tpu_torch.batch, qb3_tpu_torch.benchutil, "
             "qb3_tpu_torch._build, qb3_tpu_torch.ops.chunkwalk_cuda, "
@@ -156,7 +205,8 @@ def test_import_loads_no_jax():
             "qb3_tpu_torch.ops.place_cuda, qb3_tpu_torch.stitch, qb3_tpu_torch.strip, "
             "qb3_tpu_torch.native, qb3_tpu_torch.offsets, qb3_tpu_torch.pipeline, "
             "qb3_tpu_torch.foreign, qb3_tpu_torch.profiling, qb3_tpu_torch.pngio, "
-            "qb3_tpu_torch.cli, qb3_tpu_torch.lite; "
+            "qb3_tpu_torch.cli, qb3_tpu_torch.lite, qb3_tpu_torch.parallel, "
+            "qb3_tpu_torch.parallel.sharded; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'qb3_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
