@@ -102,7 +102,14 @@ on P1-P7.  Phases, each printed on earlier lines:
      pins; the sharded "ix", "ic" and "ib" decodes equal to their scenes; the
      2-D mesh of the 128 tiles over 2 x 2 shards equal to the single-device
      payloads; the group's bytes a call, host-to-host MB/s beside the single
-     device (3 runs in turns), the idle share and the peak device memory.
+     device (3 runs in turns), the idle share and the peak device memory;
+  8. the timing helpers (timing_phase): benchutil.sync waits for a sleep
+     queued on the current stream and one on a second stream and returns
+     at once for a tree of host leaves, the cost of one sync after a
+     trivial op, benchutil.sustained_stats' mean, MB/s and sigma at 30 and
+     100 calls x 3 windows on phase 5's device-resident "ic" encode and
+     decode (one tile, 128 tiles) beside sustained's, and
+     profiling.trace(host=True) of an "ic" round trip naming K1 and K2.
 
 Launch counts are set to 0 just before each main path and read just after,
 every twin refused in phases 6 and 7; each kernel's count in the result is
@@ -2355,6 +2362,84 @@ def sharded_phase(dev, card, kernels, scases, img, tiles, wide_imgs) -> dict:
     return launches
 
 
+# phase 8: cycles of each torch.cuda._sleep that sync must wait for (~50 ms
+# at 1.98 GHz), the syncs after a trivial op whose median is the cost of one
+SLEEP_CYCLES, SYNC_COSTS = 100_000_000, 200
+
+
+def timing_phase(dev, card, paths: dict, img):
+    """Phase 8, the timing helpers of benchutil and profiling: sync waits for
+    a sleep on the current stream and one on a second stream, and returns
+    without waiting for a tree of host leaves; the median cost of one sync
+    after a trivial op; sustained_stats (3 windows of 30 and of 100 calls)
+    on phase 5's device-resident "ic" paths beside sustained's; a
+    profiling.trace(host=True) of an "ic" round trip names K1 and K2."""
+    import tempfile
+
+    import torch
+
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import profiling
+    from qb3_tpu_torch.benchutil import sustained, sustained_stats, sync
+
+    streams = (torch.cuda.current_stream(), torch.cuda.Stream())
+
+    def queue(cycles: int):
+        """A sleep, an event and a tensor written after them on each stream."""
+        events, outs = [], []
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(cycles)
+                events.append(torch.cuda.Event())
+                events[-1].record()
+                outs.append(torch.ones(1024, device=dev))
+        return events, outs
+
+    queue(1)  # loads the ops' kernels first: a lazy load waits for the whole card
+    torch.cuda.synchronize()
+    events, outs = queue(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    sync((np.zeros(4), b"host", [np.ones(2), 3]))
+    t_host = time.perf_counter() - t0
+    check(not any(e.query() for e in events), "sync of host leaves waited for the card")
+    sync({"current": outs[0], "second": (outs[1],)})
+    check(all(e.query() for e in events), "sync returned before a stream's sleep ended")
+    x = torch.zeros(1, device=dev)
+    costs = []
+    for _ in range(SYNC_COSTS):
+        x.add_(1)
+        t0 = time.perf_counter()
+        sync(x)
+        costs.append(time.perf_counter() - t0)
+    log(f"sync: waits for a sleep on the current and on a second stream; host leaves "
+        f"return in {t_host * 1e6:.2f} us without waiting; one sync after a trivial op "
+        f"{np.median(costs) * 1e6:.2f} us (median of {SYNC_COSTS}; quartiles "
+        f"{np.percentile(costs, 25) * 1e6:.2f}-{np.percentile(costs, 75) * 1e6:.2f}) ({card})")
+
+    for label, (fn, mb) in paths.items():
+        ref = sustained(fn, 30)
+        for iters in (30, 100):
+            mean, sigma = sustained_stats(fn, iters, 3)
+            check(mean > 0 and np.isfinite(sigma), f"sustained_stats {label}: {mean}, {sigma}")
+            log(f"sustained_stats {label}, {iters} calls x 3 windows: {mean * 1e3:.4f} ms, "
+                f"{mb / mean:.2f} MB/s, sigma {sigma * 100:.2f}%; sustained (events, 30 "
+                f"calls) {ref * 1e3:.4f} ms, {mb / ref:.2f} MB/s ({card})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp, host=True):
+            stream = qt.encode(img, index="ic", device=dev)
+            out, _ = qt.decode(stream, device=dev)
+        check(np.array_equal(out, img), "traced ic round trip")
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    missing = [k for k in ("pack_groups_kernel", "chunkwalk_kernel")
+               if not any(k in n for n in names)]
+    check(not missing, f"profiling.trace(host=True): {missing} not in the trace")
+    log("profiling.trace(host=True) of an ic round trip names K1 (pack_groups_kernel) "
+        "and K2 (chunkwalk_kernel)")
+
+
 def main() -> int:
     import torch
 
@@ -2543,14 +2628,20 @@ def main() -> int:
         return reconstruct_batch(g, 512, 512, 3, HILBERT, ab["cband"], 8).to(torch.uint8)
 
     check(torch.equal(dec_dev(a1).cpu(), torch.from_numpy(img)), "device decode")
-    rates = {
-        "device encode single": raw_mb / sustained(lambda: api.fast_encode(
-            img_dev.to(torch.int64), zero, zero, HILBERT, (1, 1, 1), True, 8, n_words), 20),
-        "device decode single": raw_mb / sustained(lambda: dec_dev(a1), 20),
-        f"device encode batch{BATCH}": raw_mb * BATCH / sustained(lambda: api.fast_encode(
+    # the device-resident "ic" paths (name -> function, MB a call), timed
+    # again by phase 8
+    ic_paths = {
+        "device encode single": (lambda z=zero: api.fast_encode(
+            img_dev.to(torch.int64), z, z, HILBERT, (1, 1, 1), True, 8, n_words), raw_mb),
+        "device decode single": (lambda: dec_dev(a1), raw_mb),
+        f"device encode batch{BATCH}": (lambda: api.fast_encode(
             tiles_dev.to(torch.int64), zb, zb, HILBERT, (1, 1, 1), True, 8, n_words,
-            lanewise=True), 3),
-        f"device decode batch{BATCH}": raw_mb * BATCH / sustained(dec_batch, 3),
+            lanewise=True), raw_mb * BATCH),
+        f"device decode batch{BATCH}": (dec_batch, raw_mb * BATCH),
+    }
+    rates = {
+        **{name: mb / sustained(fn, 3 if "batch" in name else 20)
+           for name, (fn, mb) in ic_paths.items()},
         "host-to-host encode single": raw_mb / host_seconds(
             lambda: qt.encode(img, index="ic", device=dev)),
         "host-to-host decode single": raw_mb / host_seconds(
@@ -2648,6 +2739,11 @@ def main() -> int:
     for k, n in sharded_phase(dev, card, kernels, scases, img, tiles, wide_imgs).items():
         launches[k] = launches.get(k, 0) + n
     log(f"phase 7 took {time.perf_counter() - t0:.2f} s")
+
+    log("# phase 8: timing helpers")
+    t0 = time.perf_counter()
+    timing_phase(dev, card, ic_paths, img)
+    log(f"phase 8 took {time.perf_counter() - t0:.2f} s")
 
     def entry(name: str, kernel: str, n: int) -> dict:
         """The kernels line's entry of kres[name], a run of KERNELS[kernel]

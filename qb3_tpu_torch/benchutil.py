@@ -1,9 +1,12 @@
 """Timing helpers on the CUDA device, counterpart of qb3_tpu/benchutil.py.
 
 PyTorch returns from a launch before the device finishes, so a host clock
-without a synchronize times the enqueue.  These helpers bracket the work
-with CUDA events on the current stream and synchronize before reading
-them; every helper raises when CUDA is absent rather than timing the CPU.
+without a synchronize times the enqueue.  :func:`sync` is the barrier: it
+waits for every stream of every CUDA device that a result's tensors lie on.
+:func:`sustained_stats` reads the host clock around queued calls and that
+barrier; the other helpers bracket the work with CUDA events on the current
+stream and synchronize before reading them.  Every timing helper raises
+when CUDA is absent rather than timing the CPU.
 """
 
 from __future__ import annotations
@@ -91,6 +94,33 @@ def _require_cuda():
         raise RuntimeError("device timing needs a CUDA device")
 
 
+def _tensors(tree):
+    """The torch.Tensor leaves of a tree of tuples (namedtuples too), lists
+    and dicts (by value), in order; other leaves are left out."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _tensors(x)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            yield from _tensors(x)
+
+
+def sync(tree) -> None:
+    """Hard barrier: wait for every CUDA device that a tensor of ``tree``
+    lies on, one torch.cuda.synchronize per device.
+
+    A synchronize covers every stream of its device, so the work of
+    pipeline.py's streams and of parallel/sharded.py's shards on other
+    devices is waited for too; a fetch would wait for the current stream
+    alone.  Only CUDA tensors take part: host results (bytes, numpy arrays,
+    ints, plans, CPU tensors) are complete when they are returned, and a
+    tree without a CUDA tensor returns at once, without CUDA too."""
+    for d in {x.device for x in _tensors(tree) if x.is_cuda}:
+        torch.cuda.synchronize(d)
+
+
 def sustained(fn, iters: int = 30) -> float:
     """Sustained seconds per call: one warm-up call, then ``iters`` calls
     queued back to back between two events, one synchronize at the end."""
@@ -105,6 +135,35 @@ def sustained(fn, iters: int = 30) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3 / iters
+
+
+def sustained_stats(fn, iters: int = 30, windows: int = 3):
+    """(mean seconds per call, relative sigma) over ``windows`` independent
+    timing windows, so a row carries its own error bar: qb3_tpu's
+    arithmetic.
+
+    One warm-up call; each window then queues the full ``iters`` calls
+    between the host clock and :func:`sync` of the last result, so the one
+    trailing barrier is amortized as in :func:`sustained`; sigma is the
+    population std of the windows' means over their mean (0.0 for a zero
+    mean).  The host clock and sync, not CUDA events on the current stream,
+    so the work of other streams and devices is timed too.  Only the latest
+    result is kept, where qb3_tpu keeps a window's list: 100 results of a
+    128-tile encode would not fit in an H100's 80 GB.  One sync after a
+    trivial op costs 10.0-10.9 us (median of 200, two runs of
+    chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at 700 W); a call
+    much shorter than that needs ``iters`` large enough to hide it."""
+    _require_cuda()
+    sync(fn())
+    ts = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        sync(out)
+        ts.append((time.perf_counter() - t0) / iters)
+    mean = float(np.mean(ts))
+    return mean, float(np.std(ts) / mean) if mean else 0.0
 
 
 def median_ms(fn, iters: int = 20) -> float:

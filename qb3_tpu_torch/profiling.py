@@ -25,10 +25,12 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str, host: bool = False):
     """Capture a torch.profiler trace of the block into log_dir, as the
     Chrome trace file qb3.<pid>.<ns>.pt.trace.json: CPU activity, and the
     CUDA device's once CUDA is initialized (its kernels appear by name).
+    ``host`` is qb3_tpu's switch for host activity; torch.profiler always
+    records the CPU's, so the trace is the same with either value.
 
     On the H100, once a process is about a minute old, the profiler keeps
     no record of a profile's first few kernels; so the trace first

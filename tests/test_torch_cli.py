@@ -12,6 +12,7 @@ import shutil
 import numpy as np
 import pytest
 
+import qb3_tpu_torch as qt
 from qb3_tpu import cli as jcli
 from qb3_tpu import pngio as jpngio
 from qb3_tpu_torch import cli, pngio, profiling
@@ -137,5 +138,18 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     (name,) = os.listdir(tmp_path / "tr")
     assert name.endswith(".pt.trace.json")
     with open(tmp_path / "tr" / name) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+
+
+@pytest.mark.parametrize("host", [False, True])
+def test_trace_takes_qb3_tpus_host_keyword(tmp_path, host):
+    """trace(d, host=...) as qb3_tpu takes it: one Chrome trace, CPU
+    activity recorded either way."""
+    with profiling.trace(str(tmp_path), host=host):
+        qt.encode(INPUTS["u8"](), device="cpu")
+    (name,) = os.listdir(tmp_path)
+    assert name.endswith(".pt.trace.json")
+    with open(tmp_path / name) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)

@@ -10,7 +10,8 @@ against the CPU's, the serving paths (the pipelined encode and decode
 on CUDA streams, the bulk decode of streams without a sidecar) on the card
 against the CPU's, and the sharded encodes and decodes (parallel/sharded.py)
 with 2-8 shards on one card against the single-device path and the CPU's
-shards, the kernels' launches counted with every twin refused.
+shards, the kernels' launches counted with every twin refused; and
+benchutil.sync's wait for the streams of its tensors.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither jax nor qb3_tpu, so it also runs on a machine without JAX:
@@ -27,7 +28,7 @@ import pytest
 import torch
 
 import qb3_tpu_torch as qt
-from qb3_tpu_torch import container, foreign, pipeline, probes
+from qb3_tpu_torch import benchutil, container, foreign, pipeline, probes
 from qb3_tpu_torch.api import (_fused_ix_params, default_cband, ic_inputs, padded_words,
                                stream_words, to_carrier)
 from qb3_tpu_torch.batch import _flat_tile_layout
@@ -962,3 +963,24 @@ def test_cuda_stitch_streams_and_dryrun(cuda):
     assert got == sharded.stitch_streams(words, totals, devices=["cpu"] * 4)[0]
     sharded.dryrun_multichip(4, ["cuda:0"] * 4)
     sharded.dryrun_multichip(8, ["cuda:0"] * 8)
+
+
+def test_sync_waits_for_a_second_stream(cuda):
+    """benchutil.sync waits for the stream a tensor was written on, not the
+    current stream alone; a tree of host leaves returns without waiting."""
+    side = torch.cuda.Stream()
+
+    def queue(cycles):
+        done = torch.cuda.Event()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(cycles)
+            done.record()
+            return done, torch.ones(4, device=cuda)
+
+    queue(1)  # loads the ops' kernels first: a lazy load waits for the whole card
+    torch.cuda.synchronize()
+    done, x = queue(100_000_000)  # ~50 ms
+    benchutil.sync((b"xy", np.zeros(3), [7]))
+    assert not done.query()
+    benchutil.sync({"out": [x], "host": b"xy"})
+    assert done.query()
