@@ -15,7 +15,8 @@ write by default), by the serial walk on the host and K7 + K5 on the card,
 at the headline and wide shapes and on the repository's Landsat sample (a
 512x512x8 u16 CF_H stream); the streaming strips (StripEncoder /
 StripDecoder) of a u8 4096x4096x3 FTL scene and a u16 4096x4096x1 BASE_H
-elevation raster in 256-row strips, stitched on the card by K6; the best
+elevation raster in 256-row strips, stitched on the card by K6's stitch
+entry; the best
 modes (CF_H): the encode (phase A in plain PyTorch, then K1 at 27 or 43
 symbols a group) with the "ib" and "ic" sidecars and without, their
 decodes (K7 + K5, the "ic"-best chunk walk in plain PyTorch, the serial
@@ -40,8 +41,12 @@ on P1-P7.  Phases, each printed on earlier lines:
      modes' "ib" decodes (u8 512x512x3, u64 1024x1024x1, 128 u8 tiles) and
      a best strip read of the u16 raster, then on the
      edge inputs of tests/k5_edges.py, then (3e)
-     K6 (slab placement) at the slabs of the u8 4096x4096x3 strip encode's
-     stitch and of the u16 raster's best strips, then (3f) P1-P7 at their
+     K6's two entries at the stitch of the u8 4096x4096x3 strip encode and
+     of the u16 raster's best strips: the slab entry (zero fill + atomics)
+     at the slabs the CPU route cuts (beside index_add_) and the stitch
+     entry on the strips where they lie (against its twin and the host
+     stitch_bytes), each also timed with the L2 cache flushed before every
+     call, then (3f) P1-P7 at their
      probes' shapes (and P1 at the shapes of tests/p1_cases.py and on
      unaligned bases), then (3g) K4 and K2
      on the edge inputs of tests/walk_edges.py, then (3h) K1 at the best
@@ -53,8 +58,9 @@ on P1-P7.  Phases, each printed on earlier lines:
      us beside torch.take's; K1, K8, K4, K2 and K5 at every shape with the
      device ms and the device operations of a call from a profile, which
      must be the kernel and at most one memset, for K2 and K5 the kernel
-     alone; each probe, and K6, beside its one-call comparator's median,
-     device ms and enqueue us);
+     alone, for K6's stitch entry the kernel and at most the run table's
+     copy; each probe, and K6,
+     beside its one-call comparator's median, device ms and enqueue us);
   4. golden bytes: the committed web fixtures (streams pinned to the C
      reference) all decoded to their raw bytes and re-encoded by the port
      to their bytes, the three best-mode ones included, the headline
@@ -77,10 +83,13 @@ on P1-P7.  Phases, each printed on earlier lines:
      device profile, and host-to-host MB/s beside the "ic" and "ix" decodes
      of the same image; the streaming strips: each strip stream equal to the
      whole-image encode on the card, decoded losslessly in 256-row reads by
-     the C++ walk, K7 and K5, the launch counts of the strip encode (K6 once,
-     K1 or K8 once a strip) and decode read per stream, host-to-host MB/s of
-     the strip and whole-image encodes and decodes, K6's stitch beside the
-     host stitch it replaces, and the peak device memory of the strip
+     the C++ walk, K7 and K5, the launch counts of the strip encode (K6's
+     stitch entry once, K1 or K8 once a strip) and decode read per stream,
+     host-to-host MB/s of
+     the strip and whole-image encodes and decodes, K6's stitch (at most 3
+     device ops) beside the host stitch and the slab route it replaced (the
+     slab cut in plain PyTorch, then zero fill + atomics), the strip encode
+     with each stitch in turns, and the peak device memory of the strip
      encode against the whole-image encode; the best modes: u8 512x512x3
      and u64 1024x1024x1 CF_H round trips with "ib" ("ib" decode), "ic"
      ("ic-best") and no sidecar (the walk), device-resident and host-to-host
@@ -88,8 +97,8 @@ on P1-P7.  Phases, each printed on earlier lines:
      into its walk and reconstruct, a CF_H batch of 128 tiles with "ib"
      (one K1, one K7 and one K5a launch, peak device memory) and the u16
      elevation raster through the best StripEncoder / StripDecoder (equal to
-     the whole-image encode, K1 a strip, K6 once, K7 + K5b a strip read,
-     peak device memory); the Landsat sample's decode
+     the whole-image encode, K1 a strip, K6's stitch entry once, K7 + K5b
+     a strip read, peak device memory); the Landsat sample's decode
      host to host, split the same way, with a device profile; the probes'
      path with all seven names, in this process (launch counts) and as
      `python -m qb3_tpu_torch.probes` (an OK line per probe);
@@ -101,8 +110,9 @@ on P1-P7.  Phases, each printed on earlier lines:
      shards, the best headline and the four wide rasters to their sha256
      pins; the sharded "ix", "ic" and "ib" decodes equal to their scenes; the
      2-D mesh of the 128 tiles over 2 x 2 shards equal to the single-device
-     payloads; the group's bytes a call, host-to-host MB/s beside the single
-     device (3 runs in turns), the idle share and the peak device memory;
+     payloads; the group's bytes a call, each stage's host ms (the K6
+     stitch among them), host-to-host MB/s beside the single device (3 runs
+     in turns), the idle share and the peak device memory;
   8. the timing helpers (timing_phase): benchutil.sync waits for a sleep
      queued on the current stream and one on a second stream and returns
      at once for a tree of host leaves, the cost of one sync after a
@@ -116,7 +126,10 @@ every twin refused in phases 6 and 7; each kernel's count in the result is
 from the paths that run it, summed over the "ix", walk, strip, best,
 serving and sharded paths.  The line
 also holds K1 at the best modes' symbol counts as two entries of their own
-(BEST_K1), their launches counted on the best paths.  Any
+(BEST_K1), their launches counted on the best paths, and K6's stitch
+entry ("place_slabs stitch", counted by place_parts.launches and launched
+by every device stitch; the slab entry, place_slabs, is on no path and
+its count is 0).  Any
 failure exits non-zero and prints no result.  The line before the last is
 {"kernels": [...]} (each kernel's error, median ms, twin ms, bound ms, and
 a one-call PyTorch yardstick where one exists; device ms where a profile
@@ -1363,20 +1376,21 @@ def strip_decode(stream, dev):
 
 
 def k6_inputs(dev, x, mode) -> tuple:
-    """K6's inputs at the stitch of the strip encode of x in mode:
-    (slab, base, words in the stream)."""
+    """K6's inputs at the stitch of the strip encode of x in mode: (the
+    strips' words, their bit totals, the stitch's slabs and bases as the
+    CPU route cuts them, words in the stream)."""
     from qb3_tpu_torch.stitch import stitch_slabs
 
     keep = {}
     strip_encode(x, mode, False, dev, keep)
     slab, base = stitch_slabs(keep["parts"], keep["totals"])
-    return slab, base, -(-sum(keep["totals"]) // 32)
+    return keep["parts"], keep["totals"], slab, base, -(-sum(keep["totals"]) // 32)
 
 
 def k6_calls(slab, base, n_out) -> tuple:
-    """K6's wrapper on its inputs, and its yardstick: index_add_ of the
-    slabs into a zeroed stream, the index built untimed -> (kernel call,
-    index_add_ call)."""
+    """K6's slab entry on its inputs (zero fill + atomic adds), and its
+    yardstick: index_add_ of the slabs into a zeroed stream, the index
+    built untimed -> (slab entry call, index_add_ call)."""
     import torch
 
     from qb3_tpu_torch.ops.place_cuda import place_slabs
@@ -1391,35 +1405,131 @@ def k6_calls(slab, base, n_out) -> tuple:
     return (lambda: place_slabs(slab, base, n_out)), index_add
 
 
-def k6_phase(dev, card, cases: dict):
-    """Phase 3e: K6 against its twin at the slabs the stitch of each strip
-    encode places (cases: label -> (raster, mode); the first is the u8
-    4096x4096x3 FTL scene, whose times the kernels line keeps), with one
-    index_add_ call on the same slabs as the yardstick and the kernel's
-    device time from a profile."""
-    from qb3_tpu_torch.benchutil import median_ms
-    from qb3_tpu_torch.ops.place_cuda import place_slabs_plain
+def cold_l2_times(fn, op: str, names) -> dict:
+    """One call's device times with the L2 cache flushed before each call:
+    a reduction reads 128 MiB (the H100's L2 holds 50 MB) and leaves only
+    clean lines.  From a profile of 20 calls -> device_ms (the operations
+    whose name holds op), busy_ms (the operations named in names, those the
+    call issues warm) and flush_ms (every other operation: the flush)."""
+    import torch
 
-    res = None
+    flush = torch.ones(32 << 20, dtype=torch.int32, device="cuda")
+    p = profiled(lambda: (flush.sum(), fn()), 20)
+    mine = {k: v for k, v in p["per_op"].items() if k in names}
+    return dict(device_ms=sum(v for k, v in mine.items() if op in k), busy_ms=sum(mine.values()),
+                flush_ms=p["busy_ms"] - sum(mine.values()))
+
+
+def cold_text(t: dict) -> str:
+    return (f"L2 flushed before each call: device {t['busy_ms']:.4f} ms (kernel "
+            f"{t['device_ms']:.4f} ms; the flush {t['flush_ms']:.4f} ms)")
+
+
+def k6_phase(dev, card, cases: dict):
+    """Phase 3e: both entries of K6 at the stitch of each strip encode
+    (cases: label -> (raster, mode); the first is the u8 4096x4096x3 FTL
+    scene, whose times the kernels line keeps).  The slab entry
+    (place_slabs: zero fill + atomics) at the slabs the CPU route cuts,
+    against its twin and index_add_ (the yardstick); the stitch entry
+    (stitch_words_device, one launch over the parts where they lie) against
+    its twin (the CPU route on the card: stitch_slabs, then
+    place_slabs_plain) and the host stitch_bytes.  Each call's device ms
+    and device ops from a profile, K6's rows judged by all that a call
+    issues; and both entries' device ms again with the L2 cache flushed
+    before each call (cold_l2_times), since the inputs (35-55 MB) fit or
+    nearly fit in the L2 and repeated calls read them warm."""
+    import torch
+
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.ops.bitpack import words_to_bytes
+    from qb3_tpu_torch.ops.place_cuda import place_slabs_plain
+    from qb3_tpu_torch.stitch import stitch_bytes, stitch_slabs, stitch_words_device
+
+    res = {}
     for label, (x, mode) in cases.items():
-        slab, base, n_out = k6_inputs(dev, x, mode)
+        parts, totals, slab, base, n_out = k6_inputs(dev, x, mode)
         place, index_add = k6_calls(slab, base, n_out)
         got = place()
         err = compare("place_slabs", got, place_slabs_plain(slab, base, n_out))
         compare("place_slabs", index_add(), got)
         t = launch_times(place, "place_slabs_kernel")
+        cold = cold_l2_times(place, "place_slabs_kernel", t["names"])
         plain = median_ms(lambda: place_slabs_plain(slab, base, n_out), 5)
         tl = launch_times(index_add)
         need = (nbytes(slab, base, got), slab.numel())
         bms, by = bound(need)
-        log(f"K6 place_slabs {label} strip stitch: {slab.shape[0]} slabs "
-            f"{tuple(slab.shape)}, {n_out} words: equal, kernel {pack_times_text(t)}, twin "
-            f"{plain:.4f} ms, index_add_ {pack_times_text(tl)}, bound {bms:.5f} ms by {by} "
-            f"({need[0]} bytes, {need[1]} adds) ({card})")
-        res = (max(err, res[0]),) + res[1:] if res else (
-            err, t["ms"], plain, need, tl["ms"], t["device_ms"], tl["busy_ms"])
-        del slab, base, got
-    return {"place_slabs": res}
+        log(f"K6 place_slabs (slab entry) {label} strip stitch: {slab.shape[0]} slabs "
+            f"{tuple(slab.shape)}, {n_out} words: equal, {pack_times_text(t)}; "
+            f"{cold_text(cold)}; twin {plain:.4f} ms, index_add_ "
+            f"{pack_times_text(tl)}, bound {bms:.5f} ms by {by} ({need[0]} bytes, {need[1]} "
+            f"adds) ({card})")
+        entry = (err, t["ms"], plain, need, tl["ms"], t["busy_ms"], tl["busy_ms"])
+        res["place_slabs"] = ((max(err, res["place_slabs"][0]),) + res["place_slabs"][1:]
+                              if "place_slabs" in res else entry)
+
+        stitch = lambda: stitch_words_device(parts, totals, n_out)[0]  # noqa: E731
+        twin = lambda: place_slabs_plain(*stitch_slabs(parts, totals), n_out)  # noqa: E731
+        got = stitch()
+        err = compare("place_slabs stitch", got, twin())
+        total = sum(totals)
+        check(words_to_bytes(got.cpu().numpy().view(np.uint32), total)
+              == stitch_bytes([(p.cpu().numpy(), n) for p, n in zip(parts, totals)]),
+              f"K6 stitch entry {label}: the bytes differ from the host stitch_bytes")
+        t = launch_times(stitch, "place_parts_kernel")
+        extra = [n for n in t["names"] if "place_parts_kernel" not in n and "Memcpy HtoD" not in n]
+        check(t["ops"] <= 2 and not extra and any("place_parts_kernel" in n for n in t["names"]),
+              f"K6 stitch entry {label}: {t['ops']:g} device ops a call ({t['names']}), want "
+              "the kernel and at most the table's copy")
+        cold = cold_l2_times(stitch, "place_parts_kernel", t["names"])
+        plain = median_ms(twin, 5)
+        src_words = sum(-(-int(n) // 32) for n in totals)
+        need = (4 * (src_words + n_out) + 48 * sum(int(n) > 0 for n in totals),
+                PLACE_OPS * src_words)
+        bms, by = bound(need)
+        log(f"K6 place_slabs (stitch entry) {label} strip stitch: {len(parts)} parts, "
+            f"{total} bits, {n_out} words: equal to the twin and stitch_bytes, "
+            f"{pack_times_text(t)}; {cold_text(cold)}; twin "
+            f"(stitch_slabs + place_slabs_plain) {plain:.4f} ms, bound {bms:.5f} ms by {by} "
+            f"({need[0]} bytes, {need[1]} operations) ({card})")
+        entry = (err, t["ms"], plain, need, None, t["busy_ms"], None)
+        res["place_slabs stitch"] = (
+            (max(err, res["place_slabs stitch"][0]),) + res["place_slabs stitch"][1:]
+            if "place_slabs stitch" in res else entry)
+        del parts, slab, base, got
+        torch.cuda.empty_cache()
+    return res
+
+
+def slab_route(words, totals, n_out):
+    """The parent's device stitch: the slab cut in plain PyTorch
+    (stitch_slabs), then K6's any-order entry (zero fill + atomic adds)."""
+    from qb3_tpu_torch.ops.place_cuda import place_slabs
+    from qb3_tpu_torch.stitch import stitch_slabs
+
+    return place_slabs(*stitch_slabs(words, totals), n_out)
+
+
+class slab_stitch:
+    """Within the block (on: True), StripEncoder.finish and the sharded
+    encodes stitch by the slab route, the parent's device stitch, for an
+    A/B in one process."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        from qb3_tpu_torch import strip
+        from qb3_tpu_torch.parallel import sharded
+
+        self.saved = [(m, m.stitch_words_device) for m in (strip, sharded)]
+        if self.on:
+            for m, _ in self.saved:
+                m.stitch_words_device = lambda words, totals, n_out: (
+                    slab_route(words, totals, n_out), sum(int(t) for t in totals))
+
+    def __exit__(self, *exc):
+        for m, fn in self.saved:
+            m.stitch_words_device = fn
 
 
 def strip_phase(dev, card, kernels, cases):
@@ -1427,15 +1537,16 @@ def strip_phase(dev, card, kernels, cases):
     whole-image encode on the card, each stream decoded by StripDecoder,
     the launch counts set to 0 just before each strip encode and decode
     and read just after; then host-to-host MB/s of the strip and whole-image
-    encodes and decodes, K6's stitch beside the host stitch it replaces,
-    and the peak device memory of both encodes.  Returns the launch counts
-    summed over the strip paths."""
+    encodes and decodes, K6's stitch beside the host stitch and the slab
+    route it replaced, the strip encode with each stitch in turns, and the
+    peak device memory of both encodes.  Returns the launch counts summed
+    over the strip paths."""
     import qb3_tpu_torch as qt
     from qb3_tpu_torch.benchutil import host_seconds, sustained
     from qb3_tpu_torch.ops.bitpack import words_to_bytes
-    from qb3_tpu_torch.stitch import stitch_bytes, stitch_slabs, stitch_words_device
+    from qb3_tpu_torch.stitch import stitch_bytes, stitch_words_device
 
-    enc_path = ("place_slabs", "pack_groups_chunked", "encode_pack_image")
+    enc_path = ("place_slabs", "place_parts", "pack_groups_chunked", "encode_pack_image")
     dec_path = ("gather_slabs", "wavefront8", "wavefront_wide")
     launches = dict.fromkeys(enc_path + dec_path, 0)
     streams = {}
@@ -1453,7 +1564,8 @@ def strip_phase(dev, card, kernels, cases):
             out, path = strip_decode(s, dev)
             dec = {k: kernels[k].launches for k in dec_path}
             log(f"launch counts of the strips {name}: encode {enc}, decode {dec}")
-            check(enc == {"place_slabs": 1, "pack_groups_chunked": 0 if wide else nparts,
+            check(enc == {"place_slabs": 0, "place_parts": 1,
+                          "pack_groups_chunked": 0 if wide else nparts,
                           "encode_pack_image": nparts if wide else 0},
                   f"strips {name}: the encode's launches")
             check(dec == {"gather_slabs": nstrips, "wavefront8": 0 if wide else nstrips,
@@ -1485,7 +1597,8 @@ def strip_phase(dev, card, kernels, cases):
                      lambda: qt.decode(s, device=dev), 2)}
             log(f"host to host {name}: " + ", ".join(
                 f"{k} {mb / v:.2f} MB/s ({v * 1e3:.1f} ms)" for k, v in t.items()) + f" ({card})")
-        # K6's stitch against the host stitch it replaces, on the same strips
+        # K6's stitch against the host stitch it replaces and the slab route
+        # (the parent's device stitch), on the same strips
         index = indexes[0]
         keep = {}
         strip_encode(x, mode, index, dev, keep)
@@ -1501,26 +1614,43 @@ def strip_phase(dev, card, kernels, cases):
             return stitch_bytes([(p.cpu().numpy(), t) for p, t in zip(parts, totals)])
 
         check(device_stitch() == host_stitch(), f"strips {label}: the stitches differ")
-        slab, base = stitch_slabs(parts, totals)
         t_dev, t_host = host_seconds(device_stitch, 5), host_seconds(host_stitch, 5)
         t_res = sustained(lambda: stitch_words_device(parts, totals, n_out), 10)
-        t_k6 = sustained(lambda: kernels["place_slabs"](slab, base, n_out), 20)
+        t_slab = sustained(lambda: slab_route(parts, totals, n_out), 10)
         log(f"stitch {label}, {len(parts)} strips, {total} bits: K6 stitch to host bytes "
-            f"{t_dev * 1e3:.4f} ms (device-resident {t_res * 1e3:.4f} ms, K6 alone "
-            f"{t_k6 * 1e3:.4f} ms), host stitch (download every strip, stitch_bytes) "
-            f"{t_host * 1e3:.4f} ms ({card})")
-        p = profiled(lambda: stitch_words_device(parts, totals, n_out))
-        log(f"profile device-resident stitch {label}: wall {p['wall_ms']:.4f} ms, device busy "
-            f"{p['busy_ms']:.4f} ms, idle {p['idle']:.3f}, {p['ops']:.0f} device ops, top "
-            f"{p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
-        del keep, parts, slab, base
-        # peak device memory above what is allocated before the call
-        peaks = {"strip encode": peak_bytes(lambda: strip_encode(x, mode, index, dev)),
-                 "whole encode": peak_bytes(lambda: qt.encode(x, mode=mode, index=index,
-                                                              device=dev))}
-        log(f"peak device memory {label}: strip encode {peaks['strip encode'] / 2**20:.1f} MiB, "
-            f"whole encode {peaks['whole encode'] / 2**20:.1f} MiB "
-            f"({peaks['whole encode'] / peaks['strip encode']:.2f}x) ({card})")
+            f"{t_dev * 1e3:.4f} ms (device-resident {t_res * 1e3:.4f} ms; the slab route, "
+            f"stitch_slabs + zero fill + atomic K6, {t_slab * 1e3:.4f} ms), host stitch "
+            f"(download every strip, stitch_bytes) {t_host * 1e3:.4f} ms ({card})")
+        for name, fn in (("device-resident stitch", lambda: stitch_words_device(parts, totals,
+                                                                                 n_out)),
+                         ("slab route", lambda: slab_route(parts, totals, n_out))):
+            p = profiled(fn)
+            log(f"profile {name} {label}: wall {p['wall_ms']:.4f} ms, device busy "
+                f"{p['busy_ms']:.4f} ms, idle {p['idle']:.3f}, {p['ops']:.0f} device ops, top "
+                f"{p['top'][:60]} {p['top_ms']:.4f} ms ({card})")
+            if name == "device-resident stitch":
+                check(p["ops"] <= 3, f"strips {label}: the device stitch issues {p['ops']:.0f} "
+                                     "device ops")
+        del keep, parts
+        # the strip encode with the stitch entry and with the slab route, in
+        # turns; peak device memory above what is allocated before the call
+        runs = {"stitch entry": [], "slab route": []}
+        peaks = {}
+        for name in ("slab route", "stitch entry", "stitch entry", "slab route"):
+            with slab_stitch(name == "slab route"):
+                runs[name].append(host_seconds(lambda: strip_encode(x, mode, index, dev), 2))
+                peaks[name] = peak_bytes(lambda: strip_encode(x, mode, index, dev))
+        peaks["whole encode"] = peak_bytes(lambda: qt.encode(x, mode=mode, index=index,
+                                                             device=dev))
+        log(f"strip encode {label} {index or 'no sidecar'} in turns: stitch entry "
+            + ", ".join(f"{mb / v:.2f} MB/s ({v * 1e3:.1f} ms)" for v in runs["stitch entry"])
+            + "; slab route "
+            + ", ".join(f"{mb / v:.2f} MB/s ({v * 1e3:.1f} ms)" for v in runs["slab route"])
+            + f" ({card})")
+        log(f"peak device memory {label}: strip encode {peaks['stitch entry'] / 2**20:.1f} MiB "
+            f"(with the slab route {peaks['slab route'] / 2**20:.1f} MiB), whole encode "
+            f"{peaks['whole encode'] / 2**20:.1f} MiB "
+            f"({peaks['whole encode'] / peaks['stitch entry']:.2f}x) ({card})")
     return launches
 
 
@@ -1728,12 +1858,13 @@ def best_phase(dev, card, kernels, imgs: dict, tiles, elevation) -> dict:
     s = strip_encode(x, Mode.CF_H, True, dev, keep)
     nparts = len(keep.pop("parts"))
     enc = {k: kernels[k].launches
-           for k in ("place_slabs", "pack_groups_chunked", "encode_pack_image")}
+           for k in ("place_slabs", "place_parts", "pack_groups_chunked", "encode_pack_image")}
     reset(kernels)
     rows, path = strip_decode(s, dev)
     dec = {k: kernels[k].launches for k in ("gather_slabs", "wavefront8", "wavefront_wide")}
     log(f"launch counts of the best strips u16 4096x4096x1 CF_H ib: encode {enc}, decode {dec}")
-    check(enc == {"place_slabs": 1, "pack_groups_chunked": nparts, "encode_pack_image": 0},
+    check(enc == {"place_slabs": 0, "place_parts": 1, "pack_groups_chunked": nparts,
+                  "encode_pack_image": 0},
           "best strips: the encode's launches")
     check(dec == {"gather_slabs": nstrips, "wavefront8": 0, "wavefront_wide": nstrips},
           "best strips: the decode's launches")
@@ -1759,6 +1890,7 @@ def best_phase(dev, card, kernels, imgs: dict, tiles, elevation) -> dict:
     launches = {k: sum(c.get(k, 0) for c in counts.values()) + dec_counts.get(k, 0)
                 + dec.get(k, 0) for k in ("gather_slabs", "wavefront8", "wavefront_wide")}
     launches["place_slabs"] = enc["place_slabs"]
+    launches["place_parts"] = enc["place_parts"]
     return k1, launches
 
 
@@ -2278,7 +2410,8 @@ def sharded_phase(dev, card, kernels, scases, img, tiles, wide_imgs) -> dict:
         return out
 
     got = counted("pins (headline 2 / 4 / 8 shards, best headline, 4 wide)", pins,
-                  {"pack_groups_chunked": 14 + 5 * SHARDS, "place_slabs": 1}, calls=8)
+                  {"pack_groups_chunked": 14 + 5 * SHARDS, "place_parts": 1},
+                  calls=8)
     for n in (2, 4, 8):
         sha = hashlib.sha256(got[n]).hexdigest()
         check(sha == HEADLINE_SHA256, f"sharded headline over {n}: sha256 {sha}")
@@ -2292,7 +2425,7 @@ def sharded_phase(dev, card, kernels, scases, img, tiles, wide_imgs) -> dict:
 
     got = counted("u16 4096x4096x1 CF_H ib encode", lambda: sharded.encode_sharded(
         scene16, SHARDS, mode=Mode.CF_H, index=True, devices=cards()),
-        {"pack_groups_chunked": SHARDS, "place_slabs": 1})
+        {"pack_groups_chunked": SHARDS, "place_parts": 1})
     check(got == best16, "sharded u16 scene CF_H ib: the stream differs from the single "
                          "device's")
     check(container.parse_headers(got).index_best is not None, "u16 scene: no ib sidecar")
@@ -2310,7 +2443,7 @@ def sharded_phase(dev, card, kernels, scases, img, tiles, wide_imgs) -> dict:
         "scene's CF_H ib stream equal their scenes")
 
     got = counted(f"2-D mesh ({BATCH} tiles, 2 x 2)", lambda: sharded.encode_tiles_sharded(
-        tiles, 2, 2, devices=cards(4)), {"pack_groups_chunked": 4, "place_slabs": BATCH})
+        tiles, 2, 2, devices=cards(4)), {"pack_groups_chunked": 4, "place_parts": BATCH})
     check(got == mesh_ref, "2-D mesh: a payload differs from the single-device encode's")
     log(f"2-D mesh: {BATCH} u8 512x512x3 tiles over 2 x 2 shards equal the single-device "
         "payloads")
@@ -2329,6 +2462,15 @@ def sharded_phase(dev, card, kernels, scases, img, tiles, wide_imgs) -> dict:
     stage_line(f"sharded u16 4096x4096x1 CF_H ib encode ({SHARDS} shards)",
                lambda: sharded.encode_sharded(scene16, SHARDS, mode=Mode.CF_H, index=True,
                                               devices=cards()), card, stages)
+    stage_line(f"sharded 2-D mesh encode ({BATCH} tiles, 2 x 2)",
+               lambda: sharded.encode_tiles_sharded(tiles, 2, 2, devices=cards(4)), card, stages)
+    with slab_stitch(True):  # the parent's device stitch, for the stitch stage
+        stage_line(f"sharded u16 4096x4096x1 CF_H ib encode ({SHARDS} shards), slab route",
+                   lambda: sharded.encode_sharded(scene16, SHARDS, mode=Mode.CF_H, index=True,
+                                                  devices=cards()), card, stages)
+        stage_line(f"sharded 2-D mesh encode ({BATCH} tiles, 2 x 2), slab route",
+                   lambda: sharded.encode_tiles_sharded(tiles, 2, 2, devices=cards(4)), card,
+                   stages)
     stage_line(f"sharded u8 4096x4096x3 ix decode ({SHARDS} shards)",
                lambda: sharded.decode_fast_sharded(ref[True], SHARDS, devices=cards()), card,
                stages)
@@ -2461,7 +2603,7 @@ def main() -> int:
     from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs
     from qb3_tpu_torch.ops.pack_cuda import extract_windows, pack_groups_chunked
-    from qb3_tpu_torch.ops.place_cuda import place_slabs
+    from qb3_tpu_torch.ops.place_cuda import place_parts, place_slabs
     from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
 
     dev = torch.device("cuda")
@@ -2526,6 +2668,7 @@ def main() -> int:
                "wavefront_fused": wavefront_fused, "wavefront8": wavefront8,
                "wavefront_wide": wavefront_wide, "gather_slabs": gather_slabs,
                "encode_pack_image": encode_pack_image, "place_slabs": place_slabs,
+               "place_parts": place_parts,
                **{f"probe_{n}": k for n, (k, _) in probes.KERNELS.items()}}
     landsat_pin(dev, card, kernels)
 
@@ -2723,6 +2866,7 @@ def main() -> int:
     for k in ("gather_slabs", "wavefront8", "wavefront_wide"):  # K5 also ran on the ix path
         launches[k] = launches.get(k, 0) + walked[k] + stripped[k]
     launches["place_slabs"] = stripped["place_slabs"]
+    launches["place_parts"] = stripped["place_parts"]
     best_k1, best_launches = best_phase(dev, card, kernels, best_imgs, tiles,
                                         scases["u16 4096x4096x1 BASE_H"][0])
     for k, n in best_launches.items():
@@ -2748,8 +2892,8 @@ def main() -> int:
     def entry(name: str, kernel: str, n: int) -> dict:
         """The kernels line's entry of kres[name], a run of KERNELS[kernel]
         launched n times on the main path."""
-        # device ms (profiled: K1-K4, K6-K8, P1-P7; K1, K2, K4 and K8 all they issue) and
-        # the library call's, else None
+        # device ms (profiled: K1-K4, K6-K8, P1-P7; K1, K2, K4, K6 and K8 all they issue)
+        # and the library call's, else None
         err, ms, plain, need, lib, dev_ms, lib_dev = (*kres[name], None, None)[:7]
         # bound_by names the larger work term, bound_term what sets bound_ms
         # (the floor where it is larger than both)
@@ -2765,6 +2909,8 @@ def main() -> int:
     line = [entry(name, name, launches[name]) for name in KERNELS]
     # K1 at the best modes' symbol counts
     line += [entry(name, "pack_groups_chunked", best_k1[name]) for name in BEST_K1]
+    # K6's stitch entry, launched by every device stitch
+    line.append(entry("place_slabs stitch", "place_slabs", launches["place_parts"]))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,7 @@ SIGNATURES = {
                               _P, _P, _I64, _I64, _P],
     "qb3_gather_slabs": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
     "qb3_place_slabs": [_P, _P, _I64, _I32, _P, _I64, _P],
+    "qb3_place_parts": [_P, _I64, _P, _I64, _P],
     "qb3_probe_dim0_dot": [_P, _P, _I32, _I32, _I32, _P, _P],
     "qb3_probe_dma_1d": [_P, _I64, _P, _I32, _I32, _P, _P],
     "qb3_probe_flatten": [_P, _I32, _I32, _P, _P],

@@ -5,7 +5,8 @@ QB3 payloads are bit-dense: appending one sub-stream after another lands at
 arbitrary bit phase.  stitch_words, stitch_bytes and assemble_scatter are
 copies of qb3_tpu/stitch.py's host functions; stitch_words_device is the
 counterpart of its device stitch, on torch tensors, with the placement done
-by K6 (ops/place_cuda.place_slabs); scatter_stitch_shard is the
+by K6's stitch entry (ops/place_cuda.place_parts) on the card and by the
+slab cut and K6's twin on the CPU; scatter_stitch_shard is the
 counterpart of its in-shard stitch, run by each shard of a
 parallel/sharded.ShardGroup.  reference analog: the shared oBits
 accumulator across sub-encodes (QB3encode.cpp:405-455).
@@ -17,9 +18,10 @@ import numpy as np
 import torch
 
 from .ops.bitutils import M32, srl, words_u64
-from .ops.place_cuda import place_slabs
+from .ops.pack_cuda import on_cpu
+from .ops.place_cuda import place_parts, place_slabs
 
-STITCH_W = 32  # words per K6 slab
+STITCH_W = 32  # words per slab of the CPU route (stitch_slabs)
 
 
 def _as_u64(words: np.ndarray, nbits: int) -> np.ndarray:
@@ -127,6 +129,23 @@ def assemble_scatter(owns, n_owns, totals: np.ndarray) -> bytes:
     return out.view(np.uint8)[: (total + 7) // 8].tobytes()
 
 
+def stitch_runs(totals) -> np.ndarray:
+    """The run table of K6's stitch entry, pointers aside: one column a part
+    with bits (totals[s] > 0), in stream order -> (6, R) int64 rows: the
+    part's index, its output word base (bit offset >> 5), its end word (one
+    past the last word it touches, ceil((offset + total) / 32)), its source
+    words (ceil(total / 32)), its shift (offset & 31) and its last source
+    word's mask (the bits below total & 31, all where that is 0).  Both the
+    bases and the ends are non-decreasing."""
+    t = np.asarray([int(n) for n in totals], np.int64)
+    off = np.cumsum(t) - t
+    live = np.flatnonzero(t > 0)
+    n, o = t[live], off[live]
+    tail = n & 31
+    return np.stack([live, o >> 5, (o + n + 31) >> 5, (n + 31) >> 5, o & 31,
+                     np.where(tail == 0, M32, (1 << tail) - 1)]).astype(np.int64).reshape(6, -1)
+
+
 def stitch_slabs(words, totals):
     """The slabs of a device stitch: each part masked past its total and
     funnel-shifted to its bit phase, its shifted span cut into W-word slabs
@@ -177,13 +196,18 @@ def stitch_words_device(words, totals, n_out: int):
     list of 1-D tensors of any lengths, or the rows of an (S, NW) tensor),
     each holding at least ceil(totals[s] / 32) words, bits past totals[s]
     unspecified; totals: the parts' bit lengths (host integers); n_out: the
-    output's u32 word count (words past it are dropped; ceil(sum / 32)
-    keeps every bit).  stitch_slabs cuts the parts into slabs, and K6 adds
-    them into a zeroed stream: the parts touch disjoint bits.  Returns
-    ((n_out,) int32 words, zero past the total; total bits).  qb3_tpu's
-    stitch_words_device returns the same stream as u64 words.
+    output's u32 word count (words past it are dropped, words past the
+    total are zero; ceil(sum / 32) keeps every bit).  On the card K6's
+    stitch entry places every part at its bit offset in one launch
+    (place_parts, the runs of stitch_runs); on the CPU, stitch_slabs cuts
+    the parts into slabs and K6's twin adds them into a zeroed stream (the
+    parts touch disjoint bits).  Returns ((n_out,) int32 words; total
+    bits).  qb3_tpu's stitch_words_device returns the same stream as u64
+    words.
     """
     total = sum(int(t) for t in totals)
+    if not on_cpu(words[0]):
+        return place_parts(words, stitch_runs(totals), n_out), total
     cut = stitch_slabs(words, totals)
     if cut is None:
         return torch.zeros(n_out, dtype=torch.int32, device=words[0].device), total

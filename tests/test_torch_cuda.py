@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (pack), K2 (chunk walk), K3 (window copy), K4 (fused
 "ix" walk), K5a / K5b (walks on gathered windows, the best modes' CF, CF0
 and IDX groups and the edge inputs of tests/k5_edges.py included), K6
-(slab placement), K7 (window gather), K8 (fused image-layout VLC + pack)
+(slab placement, and its stitch entry on the parts of a stitch), K7
+(window gather), K8 (fused image-layout VLC + pack)
 and P1-P7 (the Mosaic probes) of
 qb3_tpu_torch against their plain PyTorch twins (K1 also at the best modes'
 symbol counts), and the public decode (best-mode streams included), the
@@ -45,13 +46,14 @@ from qb3_tpu_torch.ops.encode_image import phase_a_image
 from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
 from qb3_tpu_torch.ops.gather_cuda import (GATHER_MAX_R, gather_slabs, gather_slabs_plain,
                                            gather_span)
-from qb3_tpu_torch.ops.place_cuda import place_slabs, place_slabs_plain
-from qb3_tpu_torch.stitch import stitch_words_device
+from qb3_tpu_torch.ops.place_cuda import place_parts, place_slabs, place_slabs_plain
+from qb3_tpu_torch.stitch import stitch_words, stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 from qb3_tpu_torch.parallel import sharded
 
 from . import k5_edges, p1_cases, pack_edges, walk_edges
+from .stitch_cases import STITCH_CASES, stitch_parts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -550,10 +552,10 @@ def test_k6_matches_twin(cuda):
                               .astype(np.int32)) for t in totals]
     n_out = -(-sum(totals) // 32)
     want, _ = stitch_words_device(words, totals, n_out)
-    before = place_slabs.launches
+    before = place_slabs.launches + place_parts.launches
     got, _ = stitch_words_device([w.to(cuda) for w in words], totals, n_out)
     torch.cuda.synchronize()
-    assert place_slabs.launches == before + 1
+    assert place_slabs.launches + place_parts.launches == before + 1
     assert torch.equal(got.cpu(), want)
     slab = torch.from_numpy(rng.integers(-2**31, 2**31, (5000, 7), dtype=np.int64)
                             .astype(np.int32)).to(cuda)
@@ -563,6 +565,63 @@ def test_k6_matches_twin(cuda):
             got = place_slabs(slab, b, n_words)
             torch.cuda.synchronize()
             assert torch.equal(got, place_slabs_plain(slab, b, n_words))
+
+
+def _stitch_on_card(parts, totals, n_out):
+    """stitch_words_device on the card -> (words on the host, total), with
+    K6's launches checked: one of the stitch entry a stitch, none for an
+    empty output, none of the slab entry."""
+    before = place_slabs.launches, place_parts.launches
+    got, total = stitch_words_device(parts, totals, n_out)
+    torch.cuda.synchronize()
+    assert (place_slabs.launches, place_parts.launches) == (before[0], before[1] + (n_out > 0))
+    return got.cpu(), total
+
+
+@pytest.mark.parametrize("name", list(STITCH_CASES))
+def test_k6_stitch_entry_matches_twin(cuda, name):
+    """K6's stitch entry against its twin (the CPU route: stitch_slabs, then
+    place_slabs_plain) and the host stitch_words, the parts as rows of one
+    tensor and as tensors trimmed to their totals, at n_out short of, equal
+    to and past the total's words."""
+    totals = [int(t) for t in STITCH_CASES[name]]
+    words = stitch_parts(totals, seed=len(name))
+    w32 = torch.from_numpy(words.view(np.int32))
+    total = sum(totals)
+    host, _ = stitch_words([(w, n) for w, n in zip(words, totals)])
+    host = torch.from_numpy(host.view(np.int32))
+    trimmed = [w32[s, : -(-n // 32)].clone().to(cuda) for s, n in enumerate(totals)]
+    n = -(-total // 32)
+    for n_out in (max(0, n - 2), n, n + 40):
+        want, _ = stitch_words_device(w32, totals, n_out)
+        m = min(n_out, host.shape[0])
+        assert torch.equal(want[:m], host[:m]) and not want[m:].any()
+        for parts in (w32.to(cuda), trimmed):
+            got, gtotal = _stitch_on_card(parts, totals, n_out)
+            assert gtotal == total and got.dtype == torch.int32
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_k6_stitch_entry_random_rows(cuda, seed):
+    """K6's stitch entry on 2-64 random parts, row views of one (S, NW)
+    tensor on the card (as the 2-D mesh passes them), against its twin and
+    the host stitch_words."""
+    rng = np.random.default_rng(200 + seed)
+    S, NW = int(rng.integers(2, 65)), int(rng.integers(1, 600))
+    totals = rng.integers(0, 32 * NW + 1, S)
+    totals[rng.random(S) < 0.2] = 0
+    totals[rng.random(S) < 0.2] %= 40  # parts under 32 bits, several on one word
+    totals = [int(t) for t in totals]
+    words = rng.integers(0, 1 << 32, (S, NW), dtype=np.uint64).astype(np.uint32)
+    w32 = torch.from_numpy(words.view(np.int32))
+    n_out = -(-sum(totals) // 32)
+    want, _ = stitch_words_device(w32, totals, n_out)
+    host, _ = stitch_words([(w, n) for w, n in zip(words, totals)])
+    assert torch.equal(want, torch.from_numpy(host.view(np.int32)[:n_out]))
+    rows = w32.to(cuda)
+    got, _ = _stitch_on_card([rows[s] for s in range(S)], totals, n_out)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype,mode,index", [(np.uint8, Mode.FTL, False),
@@ -583,9 +642,9 @@ def test_cuda_strips_equal_cpu(cuda, dtype, mode, index):
             se.push(img[y:y + 24])
         return se.finish()
 
-    k6 = place_slabs.launches
+    k6 = place_slabs.launches + place_parts.launches
     stream = strips(cuda)
-    assert place_slabs.launches == k6 + 1
+    assert place_slabs.launches + place_parts.launches == k6 + 1
     assert stream == strips("cpu") == qt.encode(img, mode=mode, index=index, device=cuda)
     k7 = gather_slabs.launches
     sd = qt.StripDecoder(stream, strip_rows=32, device=cuda)
@@ -847,9 +906,11 @@ _TWINS = (("wavefront_cuda", "wavefront8_plain"), ("wavefront_cuda", "wavefront_
           ("pack_cuda", "extract_windows_plain"), ("chunkwalk_cuda", "chunkwalk8_plain"),
           ("fusedwin_cuda", "wavefront_fused_plain"), ("encode_cuda", "encode_pack_image_plain"),
           ("place_cuda", "place_slabs_plain"))
+# "K6": the stitch entry, which every device stitch launches; "K6 slabs":
+# the slab entry, which no path launches
 _SHARD_KERNELS = {"K1": pack_cuda.pack_groups_chunked, "K2": chunkwalk8,
                   "K3": pack_cuda.extract_windows, "K5a": wavefront8, "K5b": wavefront_wide,
-                  "K6": place_slabs, "K7": gather_slabs}
+                  "K6": place_parts, "K6 slabs": place_slabs, "K7": gather_slabs}
 
 
 class no_twins:
