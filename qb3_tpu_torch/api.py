@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import container, rle
+from . import container, profiling, rle
 from .constants import (
     B,
     B2,
@@ -220,12 +220,16 @@ def fast_encode(img, entry_prev, entry_runbits, order: int, cband: tuple,
     """Device-resident fast encode (FTL/BASE): phase A, then the K1 pack.
 
     img (..., H, W, C) int64 carrier; returns (words (..., n_words) int32,
-    total bits, exit_prev, exit_runbits, glen, rung)."""
-    codes, lens, exit_prev, exit_runbits, rung = encode_fast_blocks(
-        img, entry_prev, entry_runbits, order, cband, skipstep, tbits,
-        with_rungs=True, lanewise=lanewise)
-    words, total, glen = pack_groups_auto(codes, lens, n_words,
-                                          group_bits_bound(tbits, best=False))
+    total bits, exit_prev, exit_runbits, glen, rung).  Spans (profiling):
+    encode.phase_a and encode.pack, on the device's current stream."""
+    tiles = img.shape[0] if img.dim() == 4 else 1
+    with profiling.span("encode.phase_a", tiles, img.device):
+        codes, lens, exit_prev, exit_runbits, rung = encode_fast_blocks(
+            img, entry_prev, entry_runbits, order, cband, skipstep, tbits,
+            with_rungs=True, lanewise=lanewise)
+    with profiling.span("encode.pack", tiles, img.device):
+        words, total, glen = pack_groups_auto(codes, lens, n_words,
+                                              group_bits_bound(tbits, best=False))
     return words, total, exit_prev, exit_runbits, glen, rung
 
 

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import container
+from . import container, profiling
 from .api import (_NP_SIGNED, DT_FROM_NP, NP_FROM_DT, UNSIGNED, _fused_ix_params,
                   _parse_best_sidecar, best_sidecar, default_cband, fast_encode, ic_inputs,
                   narrow, put_on, stream_words, to_carrier, walk_inputs, widen)
@@ -56,25 +56,31 @@ def best_encode_tiles(uns: np.ndarray, order: int, cband: tuple, n_words: int, d
     for each group of whole tiles of at most BEST_GROUPS groups (one tile
     when a tile has more), into one (N, ngroups, S) symbol buffer, then one
     K1 launch -> (words, totals, glen, meta16, cfv).  A tile's symbols are
-    the same whatever group it is in."""
+    the same whatever group it is in.  Spans (profiling), on the device's
+    current stream: batch.upload and encode.phase_a a pass, encode.pack."""
     n, h, w, nb = uns.shape
     tbits = 8 * uns.dtype.itemsize
     per = max(1, BEST_GROUPS // (((h + B - 1) // B) * ((w + B - 1) // B) * nb))
     codes = lens = meta16 = cfv = None
     for t0 in range(0, n, per):
-        x = to_carrier(uns[t0:t0 + per], device)
-        zero = torch.zeros(x.shape[0], nb, dtype=torch.int64, device=device)
-        c, ln, _, _, _, m16, cf, _, _ = encode_best_blocks(x, zero, zero, zero, order, cband,
-                                                           tbits)
-        if codes is None:
-            codes = c.new_empty((n, *c.shape[1:]))
-            lens = ln.new_empty((n, *ln.shape[1:]))
-            meta16 = m16.new_empty((n, *m16.shape[1:]))
-            cfv = cf.new_empty((n, *cf.shape[1:]))
-        for out, part in ((codes, c), (lens, ln), (meta16, m16), (cfv, cf)):
-            out[t0:t0 + per] = part
+        k = min(per, n - t0)
+        with profiling.span("batch.upload", k, device):
+            x = to_carrier(uns[t0:t0 + per], device)
+        with profiling.span("encode.phase_a", k, device):
+            zero = torch.zeros(k, nb, dtype=torch.int64, device=device)
+            c, ln, _, _, _, m16, cf, _, _ = encode_best_blocks(x, zero, zero, zero, order,
+                                                               cband, tbits)
+            if codes is None:
+                codes = c.new_empty((n, *c.shape[1:]))
+                lens = ln.new_empty((n, *ln.shape[1:]))
+                meta16 = m16.new_empty((n, *m16.shape[1:]))
+                cfv = cf.new_empty((n, *cf.shape[1:]))
+            for out, part in ((codes, c), (lens, ln), (meta16, m16), (cfv, cf)):
+                out[t0:t0 + per] = part
         del x, c, ln, m16, cf
-    words, totals, glen = pack_groups_auto(codes, lens, n_words, group_bits_bound(tbits, True))
+    with profiling.span("encode.pack", n, device):
+        words, totals, glen = pack_groups_auto(codes, lens, n_words,
+                                               group_bits_bound(tbits, True))
     return words, totals, glen, meta16, cfv
 
 
@@ -158,23 +164,31 @@ def encode_dispatch(plan: EncodePlan, tiles, device) -> dict:
 
 def encode_finish(plan: EncodePlan, words: np.ndarray, host: dict) -> list[bytes]:
     """The N streams from the fetched results: words (N, >= the longest
-    stream's words) u32, host encode_dispatch's other outputs as arrays."""
+    stream's words) u32, host encode_dispatch's other outputs as arrays.
+    Three passes over the batch, a span (profiling) each: finish.sidecar,
+    finish.headers, finish.bytes."""
     n, h, w, nb = plan.uns.shape
     totals = host["totals"]
-    out = []
-    for i in range(n):
-        idx, sig = None, b"ix"
-        if plan.index and plan.best:
-            idx, sig = best_sidecar(host["glen"][i], host["meta16"][i], host["cfv"][i]), b"ib"
-        elif plan.index == "ic":
-            if int(host["spans"][i].sum()) < 1 << 31:
-                idx, sig = pack_ic(host["spans"][i], host["entry"][i], IC_DEFAULT_K), b"ic"
-        elif plan.index:
-            idx = host["glen"][i].astype("<u2").tobytes()
-        hdr = container.write_headers(w, h, nb, plan.dt, plan.mode, list(plan.cband), 1,
-                                      plan.header_order, idx, sig)
-        out.append(hdr + words_to_bytes(words[i], int(totals[i])))
-    return out
+    with profiling.span("finish.sidecar", n):
+        sidecars = [_sidecar(plan, host, i) for i in range(n)]
+    with profiling.span("finish.headers", n):
+        hdrs = [container.write_headers(w, h, nb, plan.dt, plan.mode, list(plan.cband), 1,
+                                        plan.header_order, idx, sig) for idx, sig in sidecars]
+    with profiling.span("finish.bytes", n):
+        return [hdr + words_to_bytes(words[i], int(totals[i])) for i, hdr in enumerate(hdrs)]
+
+
+def _sidecar(plan: EncodePlan, host: dict, i: int):
+    """Tile i's sidecar (bytes or None) and its signature."""
+    if plan.index and plan.best:
+        return best_sidecar(host["glen"][i], host["meta16"][i], host["cfv"][i]), b"ib"
+    if plan.index == "ic":
+        if int(host["spans"][i].sum()) < 1 << 31:
+            return pack_ic(host["spans"][i], host["entry"][i], IC_DEFAULT_K), b"ic"
+        return None, b"ix"
+    if plan.index:
+        return host["glen"][i].astype("<u2").tobytes(), b"ix"
+    return None, b"ix"
 
 
 def encode_tiles(imgs: np.ndarray, mode: int = Mode.FTL, coreband=None,
@@ -184,14 +198,21 @@ def encode_tiles(imgs: np.ndarray, mode: int = Mode.FTL, coreband=None,
     FTL/BASE, with no sidecar, the "ic" sidecar or (index True / "ix") the
     "ix" sidecar; CF/CF_H (best_encode_tiles), with no sidecar or (index
     True or "ic", as qb3_tpu writes it) the "ib" sidecar.  Each tile's
-    stream is byte-identical to a standalone encode.
+    stream is byte-identical to a standalone encode.  Spans (profiling), of
+    one batch: batch.fetch (the blocking copies, timed on the device too)
+    and batch.finish.
     """
     plan = plan_encode(imgs, mode, coreband, index)
-    out = encode_dispatch(plan, upload_tiles(plan, put_on(device)), device)
-    words = out.pop("words")
-    host = {k: v.cpu().numpy() for k, v in out.items()}
-    used = int(host["totals"].max() + 31) // 32
-    return encode_finish(plan, words[:, :used].cpu().numpy().view(np.uint32), host)
+    n = imgs.shape[0]
+    with profiling.batch():
+        out = encode_dispatch(plan, upload_tiles(plan, put_on(device)), device)
+        words = out.pop("words")
+        with profiling.span("batch.fetch", n, words.device):
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            used = int(host["totals"].max() + 31) // 32
+            words = words[:, :used].cpu().numpy().view(np.uint32)
+        with profiling.span("batch.finish", n):
+            return encode_finish(plan, words, host)
 
 
 def ib_meta(metas: list, tile_words32: int) -> dict:

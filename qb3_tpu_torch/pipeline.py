@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from . import profiling
 from .api import DT_FROM_NP, UNSIGNED, default_cband, stream_words
 from .batch import (EncodePlan, decode_dispatch, decode_finish, decode_inputs,
                     encode_dispatch, encode_finish, plan_decode, upload_tiles)
@@ -133,26 +134,40 @@ def encode_tiles_pipelined(batches, mode: int = Mode.FTL, coreband=None, index=F
     """Encode an iterable of (N, H, W, C) same-shape tile batches -> yields
     one list of container streams per batch, double-buffered: batch k's
     streams are written while batch k+1 is on the device.  index: False,
-    True / "ix" or "ic", as batch.encode_tiles takes it."""
+    True / "ix" or "ic", as batch.encode_tiles takes it.  Spans
+    (profiling), each batch's own: pipeline.upload (the pinned staging, on
+    the upload stream), pipeline.fetch_wait (the host waiting for the
+    batch's fetch) and pipeline.finish; a batch past the fetch cap counts
+    in pipeline.cap_misses."""
     lanes = Lanes(device)
     pending = None
     cap_words = None  # adaptive fetch cap, learned from an earlier batch
 
-    def finish(plan, full, cap, fetched, event, *keep):
-        lanes.wait(event)
-        host = {k: v.numpy() for k, v in fetched.items()}
-        words = host.pop("words")
-        need = int((host["totals"].max() + 31) >> 5)
-        if need > cap:
-            # rare: a tile compressed worse than the fetch cap, so its row
-            # comes from the retained full buffer (the batch has finished)
-            words = full.cpu().numpy()
-        return encode_finish(plan, words.view(np.uint32), host), max(need, 1)
+    def finish(plan, full, cap, fetched, event, bid, *keep):
+        n = plan.uns.shape[0]
+        with profiling.batch(bid):
+            with profiling.span("pipeline.fetch_wait", n):
+                lanes.wait(event)
+            host = {k: v.numpy() for k, v in fetched.items()}
+            words = host.pop("words")
+            need = int((host["totals"].max() + 31) >> 5)
+            if need > cap:
+                # rare: a tile compressed worse than the fetch cap, so its row
+                # comes from the retained full buffer (the batch has finished)
+                profiling.count("pipeline.cap_misses")
+                words = full.cpu().numpy()
+            with profiling.span("pipeline.finish", n):
+                return encode_finish(plan, words.view(np.uint32), host), max(need, 1)
+
+    def put(arr):
+        with profiling.span("pipeline.upload", arr.shape[0], lanes.device):
+            return lanes.put(arr)
 
     for tiles in batches:
         plan = _plan(tiles, mode, coreband, index)
-        x, up = lanes.upload(upload_tiles, plan, lanes.put)
-        out, done = lanes.compute(up, encode_dispatch, plan, x, lanes.device)
+        with profiling.batch() as bid:
+            x, up = lanes.upload(upload_tiles, plan, put)
+            out, done = lanes.compute(up, encode_dispatch, plan, x, lanes.device)
         # fetch only the compressed prefix of the words: the cap is the
         # worst tile of the last finished batch + 12.5%, bucketed to
         # n_words / 8 (finish falls back to the full buffer past it)
@@ -166,7 +181,7 @@ def encode_tiles_pipelined(batches, mode: int = Mode.FTL, coreband=None, index=F
             streams, cap_words = finish(*pending)
             yield streams
         # x and out stay referenced until the batch's fetch has passed
-        pending = (plan, full, cap, fetched, event, x, out)
+        pending = (plan, full, cap, fetched, event, bid, x, out)
     if pending is not None:
         yield finish(*pending)[0]
 
