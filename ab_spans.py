@@ -10,7 +10,8 @@ tracer on or off, for its cost.
         # host_finish_ms_per_tile.* of the same run
     python3 ab_spans.py cost --workload rgb8-ftl-ingest --seed 11 --tracer on
         # one untraced run (portbench's --trace 0) with the tracer switched
-        # on (or off) before set-up: its result line
+        # on (or off) before set-up: its result line, and with the tracer
+        # on the table of its measured window, as for table
 
 Run from the root of a checkout that holds BENCHMARK.json and portbench/;
 each run's records go to ab/spans/<workload>.<seed>.json (git-ignored).
@@ -59,10 +60,9 @@ def stage_table(records) -> dict:
     return out
 
 
-def table(args) -> None:
-    from portbench import harness, spans
-
-    from qb3_tpu_torch import profiling
+def kept_runs() -> list:
+    """The harness's runs, each appended as it is made."""
+    from portbench import harness
 
     runs = []
 
@@ -72,42 +72,59 @@ def table(args) -> None:
             runs.append(self)
 
     harness.Run = KeptRun
+    return runs
+
+
+def report(workload: str, seed: int, out: dict, window: list) -> None:
+    """The window's stage table, printed and kept with the records."""
+    from qb3_tpu_torch import profiling
+
+    stages = stage_table(window)
+    with open(os.path.join(OUT, f"{workload}.{seed}.json"), "w") as f:
+        json.dump(dict(result=out, stages=stages, records=window), f)
+    print(f"seed {seed}: {'stage':22s} {'spans':>6s} {'host':>9s} {'device':>9s} "
+          f"{'self':>9s}  (ms a tile)")
+    for name, s in stages.items():
+        dev = "-" if s["device"] is None else f"{s['device']:.5f}"
+        print(f"seed {seed}: {name:22s} {s['spans']:6d} {s['host']:9.5f} {dev:>9s} "
+              f"{s['self']:9.5f}")
+    for inner, outer in (("pipeline.finish", "host_finish_ms_per_tile.encode"),
+                         ("batch.finish", "host_finish_ms_per_tile.best")):
+        if inner in stages and outer in out["metrics"]:
+            a, b = stages[inner]["host"], out["metrics"][outer]["value"]
+            print(f"seed {seed}: {inner} {a:.5f} vs {outer} {b:.5f} ms a tile "
+                  f"({100 * (a / b - 1):+.2f}%)")
+    print(f"seed {seed}: cap_misses {profiling.counters()['pipeline.cap_misses']}", flush=True)
+
+
+def table(args) -> None:
+    from portbench import harness, spans
+
+    from qb3_tpu_torch import profiling
+
+    runs = kept_runs()
     for seed in args.seeds:
         profiling.disable()  # a fresh ring a run
         t0 = time.perf_counter()
         out = harness.execute(args.workload, seed, args.seconds, True, t_start=t0)
-        window = spans.in_window(profiling.records(), runs[-1])
-        stages = stage_table(window)
         print(json.dumps(out))
-        with open(os.path.join(OUT, f"{args.workload}.{seed}.json"), "w") as f:
-            json.dump(dict(result=out, stages=stages, records=window), f)
-        print(f"seed {seed}: {'stage':22s} {'spans':>6s} {'host':>9s} {'device':>9s} "
-              f"{'self':>9s}  (ms a tile)")
-        for name, s in stages.items():
-            dev = "-" if s["device"] is None else f"{s['device']:.5f}"
-            print(f"seed {seed}: {name:22s} {s['spans']:6d} {s['host']:9.5f} {dev:>9s} "
-                  f"{s['self']:9.5f}")
-        for inner, outer in (("pipeline.finish", "host_finish_ms_per_tile.encode"),
-                             ("batch.finish", "host_finish_ms_per_tile.best")):
-            if inner in stages and outer in out["metrics"]:
-                a, b = stages[inner]["host"], out["metrics"][outer]["value"]
-                print(f"seed {seed}: {inner} {a:.5f} vs {outer} {b:.5f} ms a tile "
-                      f"({100 * (a / b - 1):+.2f}%)")
-        print(f"seed {seed}: cap_misses {profiling.counters()['pipeline.cap_misses']}",
-              flush=True)
+        report(args.workload, seed, out, spans.in_window(profiling.records(), runs[-1]))
 
 
 def cost(args) -> None:
-    from portbench import harness
+    from portbench import harness, spans
 
     from qb3_tpu_torch import profiling
 
+    runs = kept_runs()
     if args.tracer == "on":
         profiling.enable()
     out = harness.execute(args.workload, args.seed, args.seconds, False, t_start=T_START)
     out["tracer"] = args.tracer
     out["spans"] = len(profiling.records()) if args.tracer == "on" else 0
     print(json.dumps(out))
+    if args.tracer == "on":
+        report(args.workload, args.seed, out, spans.in_window(profiling.records(), runs[-1]))
 
 
 def main(argv=None) -> int:

@@ -27,7 +27,9 @@ on P1-P7.  Phases, each printed on earlier lines:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source,
      and measure the launch floor (an empty kernel's device time);
-  3. K1 (pack), K3 (window copy) and K2 (chunk walk) at the "ic" path's
+  3. K9 (the fast phase A in one launch) at one u8 512x512x3 tile and 128
+     of them, its outputs compared field by field, then K1 (pack, on K9's
+     outputs), K3 (window copy) and K2 (chunk walk) at the "ic" path's
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
      + pack) at the wide shapes, FTL and BASE, then K7 (window gather) at
@@ -55,9 +57,9 @@ on P1-P7.  Phases, each printed on earlier lines:
      plain PyTorch twin (exact equality) and, for the probes, the probe's
      own check; median times, twin times, bounds and a one-call yardstick
      (K3 and K7 at every shape also with their device ms and host enqueue
-     us beside torch.take's; K1, K8, K4, K2 and K5 at every shape with the
-     device ms and the device operations of a call from a profile, which
-     must be the kernel and at most one memset, for K2 and K5 the kernel
+     us beside torch.take's; K9, K1, K8, K4, K2 and K5 at every shape with
+     the device ms and the device operations of a call from a profile, which
+     must be the kernel and at most one memset, for K9, K2 and K5 the kernel
      alone, for K6's stitch entry the kernel and at most the run table's
      copy; each probe, and K6,
      beside its one-call comparator's median, device ms and enqueue us);
@@ -155,7 +157,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 128
-KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas_call)
+KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas_call, or
+    # what it replaces where qb3_tpu has no kernel there)
     "pack_groups_chunked": ("qb3_tpu_torch/csrc/pack.cu", "qb3_tpu/ops/pack_pallas.py:228"),
     "extract_windows": ("qb3_tpu_torch/csrc/pack.cu", "qb3_tpu/ops/pack_pallas.py:295"),
     "chunkwalk8": ("qb3_tpu_torch/csrc/chunkwalk.cu", "qb3_tpu/ops/chunkwalk_pallas.py:211"),
@@ -166,6 +169,8 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
     "encode_pack_image": ("qb3_tpu_torch/csrc/encode_image.cu",
                           "qb3_tpu/ops/encode_pallas.py:322"),
     "place_slabs": ("qb3_tpu_torch/csrc/place.cu", "qb3_tpu/ops/pack_pallas.py:388"),
+    "phase_a_fast": ("qb3_tpu_torch/csrc/phase_a.cu",
+                     "none: XLA ops (qb3_tpu/ops/encode.py encode_fast_blocks)"),
     "probe_dim0_dot": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:24"),
     "probe_1d_dma": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:49"),
     "probe_flatten": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:62"),
@@ -445,17 +450,71 @@ def k1_cases(img, tiles, dev):
     from qb3_tpu_torch import api
     from qb3_tpu_torch.constants import HILBERT
     from qb3_tpu_torch.ops import bitpack
-    from qb3_tpu_torch.ops.encode import encode_fast_blocks
+    from qb3_tpu_torch.ops.phase_a_cuda import phase_a_fast
 
     n_words = api.stream_words(512, 512, 3, 0)
     maxbits = bitpack.group_bits_bound(8, best=False)
     for label, x in (("single", img), (f"batch{BATCH}", tiles)):
         lead = x.shape[:-3]
         zero = torch.zeros(*lead, 3, dtype=torch.int64, device=dev)
-        codes, lens, _, _ = encode_fast_blocks(api.to_carrier(x, dev), zero, zero,
-                                               HILBERT, (1, 1, 1), True, 8,
-                                               lanewise=bool(lead))
+        codes, lens, _, _ = phase_a_fast(api.to_carrier(x, dev), zero, zero, HILBERT,
+                                         (1, 1, 1), True, 8)
         yield label, (codes, lens, n_words, maxbits)
+
+
+def k9_need(x, tbits: int, nsym: int) -> tuple:
+    """(bytes, operations) K9 needs for the tiles x: the raster read once and
+    the codes, lengths, rungs and exit state written once, at the widths of
+    their values (CODE_BYTES a code, a byte a length and a rung); coding each
+    value (CODE_OPS) and each group's prefix (GROUP_OPS)."""
+    *lead, h, w, nb = x.shape
+    ngroups = int(np.prod(lead, dtype=np.int64)) * -(-h // 4) * -(-w // 4) * nb
+    nstate = int(np.prod(lead, dtype=np.int64)) * nb
+    return (x.size * tbits // 8 + ngroups * (nsym * (CODE_BYTES[tbits] + 1) + 1)
+            + 2 * nstate * tbits // 8,
+            ngroups * (16 * CODE_OPS * wide(tbits) + GROUP_OPS))
+
+
+def k9_phase(dev, card, img, tiles) -> dict:
+    """Phase 3: K9 (the fast phase A in one launch) against its twin
+    (ops/encode.encode_fast_blocks on the same card tensors) at the main
+    path's shapes, one u8 512x512x3 tile and BATCH of them (FTL, Hilbert,
+    core bands (1, 1, 1), a zero entry state, with the rungs): every output
+    equal, field by field, in shape, dtype and value; its times, which must
+    be the kernel alone a call, the twin's median and the bound."""
+    import torch
+
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.constants import HILBERT
+    from qb3_tpu_torch.ops.encode import encode_fast_blocks
+    from qb3_tpu_torch.ops.phase_a_cuda import phase_a_fast
+
+    results = {}
+    fields = ("codes", "lens", "exit_prev", "exit_runbits", "rung")
+    for label, x in (("single", img), (f"batch{BATCH}", tiles)):
+        zero = torch.zeros(*x.shape[:-3], 3, dtype=torch.int64, device=dev)
+        args = (api.to_carrier(x, dev), zero, zero, HILBERT, (1, 1, 1), True, 8, True)
+        got, want = phase_a_fast(*args), encode_fast_blocks(*args)
+        check(len(got) == len(want) == len(fields), f"K9 {label}: {len(got)} outputs")
+        for name, g, w in zip(fields, got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"K9 {label} {name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+            check(torch.equal(g, w), f"K9 {label} {name}: the kernel disagrees with its twin")
+        need = k9_need(x, 8, got[0].shape[-1])
+        carriers = nbytes(args[0], *got)
+        del got, want
+        t = launch_times(lambda: phase_a_fast(*args), "phase_a_kernel")
+        check_one_launch(f"K9 {label}", t, "phase_a_kernel", memset=False)
+        plain = median_ms(lambda: encode_fast_blocks(*args), 5)
+        bms, by = bound(need)
+        log(f"K9 phase_a_fast {label} {tuple(x.shape)}: equal field by field; "
+            f"{pack_times_text(t)}; twin {plain:.4f} ms; bound {bms:.5f} ms by {by} "
+            f"({need[0]} bytes, {need[1]} operations); the int64 carriers weigh {carriers} "
+            f"bytes, {carriers / HBM_BYTES_PER_S * 1e3:.5f} ms ({card})")
+        results.setdefault("phase_a_fast", (0, t["ms"], plain, need, None, t["busy_ms"], None))
+        del args
+    return results
 
 
 def k1_best_cases(imgs: dict, dev):
@@ -1224,12 +1283,12 @@ def probe_main_path(kernels) -> dict:
 
 
 class no_twins:
-    """Within the block, the twins of K1-K8 raise if called: the path
+    """Within the block, the twins of K1-K9 raise if called: the path
     inside runs on the kernels alone."""
 
     def __enter__(self):
         from qb3_tpu_torch.ops import (chunkwalk_cuda, encode_cuda, fusedwin_cuda, gather_cuda,
-                                       pack_cuda, place_cuda, wavefront_cuda)
+                                       pack_cuda, phase_a_cuda, place_cuda, wavefront_cuda)
 
         def refuse(*_, **__):
             raise AssertionError("a twin ran on the card's path")
@@ -1239,7 +1298,7 @@ class no_twins:
             (gather_cuda, "gather_slabs_plain"), (pack_cuda, "pack_groups"),
             (pack_cuda, "extract_windows_plain"), (chunkwalk_cuda, "chunkwalk8_plain"),
             (fusedwin_cuda, "wavefront_fused_plain"), (encode_cuda, "encode_pack_image_plain"),
-            (place_cuda, "place_slabs_plain"))]
+            (place_cuda, "place_slabs_plain"), (phase_a_cuda, "encode_fast_blocks"))]
         for m, n, _ in self.saved:
             setattr(m, n, refuse)
 
@@ -1546,7 +1605,8 @@ def strip_phase(dev, card, kernels, cases):
     from qb3_tpu_torch.ops.bitpack import words_to_bytes
     from qb3_tpu_torch.stitch import stitch_bytes, stitch_words_device
 
-    enc_path = ("place_slabs", "place_parts", "pack_groups_chunked", "encode_pack_image")
+    enc_path = ("place_slabs", "place_parts", "phase_a_fast", "pack_groups_chunked",
+                "encode_pack_image")
     dec_path = ("gather_slabs", "wavefront8", "wavefront_wide")
     launches = dict.fromkeys(enc_path + dec_path, 0)
     streams = {}
@@ -1565,6 +1625,7 @@ def strip_phase(dev, card, kernels, cases):
             dec = {k: kernels[k].launches for k in dec_path}
             log(f"launch counts of the strips {name}: encode {enc}, decode {dec}")
             check(enc == {"place_slabs": 0, "place_parts": 1,
+                          "phase_a_fast": 0 if wide else nparts,
                           "pack_groups_chunked": 0 if wide else nparts,
                           "encode_pack_image": nparts if wide else 0},
                   f"strips {name}: the encode's launches")
@@ -2139,7 +2200,8 @@ def serving_phase(dev, card, kernels) -> dict:
     def enc():
         return list(pipeline.encode_tiles_pipelined(iter(batches), index="ic", device=dev))
 
-    streams = counted("pipelined ic encode (3 x 128)", enc, {"pack_groups_chunked": 3})
+    streams = counted("pipelined ic encode (3 x 128)", enc,
+                      {"phase_a_fast": 3, "pack_groups_chunked": 3})
     sha = hashlib.sha256(streams[0][0]).hexdigest()
     check(sha == HEADLINE_SHA256, f"pipelined headline sha256 {sha} != {HEADLINE_SHA256}")
     serial = [batch.encode_tiles(b, index="ic", device=dev) for b in batches]
@@ -2178,10 +2240,10 @@ def serving_phase(dev, card, kernels) -> dict:
     mb = sum(b.nbytes for b in row) / 1e6
     ic = counted(f"pipelined ic encode (4 x {ROW_TILES})", lambda: list(
         pipeline.encode_tiles_pipelined(iter(row), index="ic", device=dev)),
-        {"pack_groups_chunked": 4})
+        {"phase_a_fast": 4, "pack_groups_chunked": 4})
     ix = counted(f"pipelined ix encode (4 x {ROW_TILES})", lambda: list(
         pipeline.encode_tiles_pipelined(iter(row), index=True, device=dev)),
-        {"pack_groups_chunked": 4})
+        {"phase_a_fast": 4, "pack_groups_chunked": 4})
     ib = [qt.encode_tiles(b, mode=Mode.CF_H, index=True, device=dev) for b in row]
     want = {"ic": {"extract_windows": 4, "chunkwalk8": 4}, "ix": {"wavefront_fused": 4},
             "ib": {"gather_slabs": 4, "wavefront8": 4}}
@@ -2603,6 +2665,7 @@ def main() -> int:
     from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs
     from qb3_tpu_torch.ops.pack_cuda import extract_windows, pack_groups_chunked
+    from qb3_tpu_torch.ops.phase_a_cuda import phase_a_fast
     from qb3_tpu_torch.ops.place_cuda import place_parts, place_slabs
     from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
 
@@ -2630,7 +2693,8 @@ def main() -> int:
     u64 = headline_image(256, 256, 1, seed=8, dtype=np.uint64)
 
     log("# phase 3: kernels against their twins")
-    kres = kernel_phase(dev, card, img, tiles, u16)
+    kres = k9_phase(dev, card, img, tiles)
+    kres.update(kernel_phase(dev, card, img, tiles, u16))
     cases = ix_cases()
     ix_res, ix_streams = ix_kernel_phase(dev, card, cases)
     kres.update(ix_res)
@@ -2668,12 +2732,12 @@ def main() -> int:
                "wavefront_fused": wavefront_fused, "wavefront8": wavefront8,
                "wavefront_wide": wavefront_wide, "gather_slabs": gather_slabs,
                "encode_pack_image": encode_pack_image, "place_slabs": place_slabs,
-               "place_parts": place_parts,
+               "place_parts": place_parts, "phase_a_fast": phase_a_fast,
                **{f"probe_{n}": k for n, (k, _) in probes.KERNELS.items()}}
     landsat_pin(dev, card, kernels)
 
     log("# phase 5: main paths")
-    ic_path = ("pack_groups_chunked", "extract_windows", "chunkwalk8")
+    ic_path = ("phase_a_fast", "pack_groups_chunked", "extract_windows", "chunkwalk8")
     ix_path = ("pack_groups_chunked", "wavefront_fused", "wavefront8", "wavefront_wide")
     reset(kernels)
     stream = qt.encode(img, index="ic", device=dev)
@@ -2726,7 +2790,7 @@ def main() -> int:
 
     # the public encode of the wide shapes (the image-layout encode): the
     # "ix" streams are qb3_tpu's (phase 4's sha256s), both sidecars round-trip,
-    # through K8 and never K1
+    # through K8 and never K9 or K1
     reset(kernels)
     for label, x in wide_imgs.items():
         for index in (True, "ic"):
@@ -2739,9 +2803,10 @@ def main() -> int:
                   and d.decode_path == ("ix" if index is True else "ic"),
                   f"wide {label} {index} round trip")
     wide_launches = {name: kernels[name].launches
-                     for name in ("encode_pack_image", "pack_groups_chunked")}
+                     for name in ("encode_pack_image", "phase_a_fast", "pack_groups_chunked")}
     log(f"launch counts on the wide encode path: {wide_launches}")
     check(wide_launches["encode_pack_image"] > 0, "K8 was not launched on the wide path")
+    check(wide_launches["phase_a_fast"] == 0, "K9 ran on the wide path")
     check(wide_launches["pack_groups_chunked"] == 0, "K1 ran on the wide path")
     log(f"lossless wide: {', '.join(wide_imgs)} (ix and ic round trips)")
     launches["encode_pack_image"] = wide_launches["encode_pack_image"]
@@ -2867,6 +2932,7 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + walked[k] + stripped[k]
     launches["place_slabs"] = stripped["place_slabs"]
     launches["place_parts"] = stripped["place_parts"]
+    launches["phase_a_fast"] += stripped["phase_a_fast"]
     best_k1, best_launches = best_phase(dev, card, kernels, best_imgs, tiles,
                                         scases["u16 4096x4096x1 BASE_H"][0])
     for k, n in best_launches.items():

@@ -46,6 +46,8 @@ SIGNATURES = {
     "qb3_probe_dma_3d": [_P, _I32, _I32, _I32, _P, _I32, _P, _P],
     "qb3_probe_lane_write": [_P, _I32, _I32, _I32, _I32, _P, _P],
     "qb3_probe_lane_concat": [_P, _I32, _I32, _I32, _P, _P],
+    "qb3_phase_a_fast": [_P, _P, _P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _U64, _I32, _P,
+                         _P, _P, _P, _P, _P],
     "qb3_empty": [_P],
 }
 

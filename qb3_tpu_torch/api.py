@@ -7,10 +7,11 @@
 
     info, img = decode(stream)        # full decode
 
-Phase A (ops/encode.py) and the pack (K1) run on the given device; this
-module is the host-side orchestration: validation, quantization, small
-image repacking, container framing, the RLE0 post-pass and the fallbacks
-(qb3_encode, QB3encode.cpp:488-574).  u16/u32/u64 images whose sides are
+Phase A (K9, ops/phase_a_cuda.py; on the CPU its twin in ops/encode.py)
+and the pack (K1) run on the given device; this module is the host-side
+orchestration: validation, quantization, small image repacking, container
+framing, the RLE0 post-pass and the fallbacks (qb3_encode,
+QB3encode.cpp:488-574).  u16/u32/u64 images whose sides are
 multiples of 4 take the image-layout phase A (ops/encode_image.py) and K8
 (ops/encode_cuda.py) instead, to the same bytes (takes_fused).
 
@@ -57,12 +58,12 @@ from .ops.decode import (_NREG_IX, K5_KIND, decode_groups, decode_indexed_narrow
 from .ops.decode_chunked import (IC_DEFAULT_K, chunk_spans, chunk_spans_best,
                                  decode_chunked_auto, decode_chunked_best, pack_ic,
                                  pack_ic_best, parse_ic, parse_ic_best)
-from .ops.encode import encode_fast_blocks
 from .ops.encode_best import encode_best_blocks
 from .ops.encode_cuda import encode_pack_image, image_pack_args
 from .ops.encode_image import phase_a_image
 from .ops.fusedwin_cuda import ix_window_R
 from .ops.gather_cuda import gather_span
+from .ops.phase_a_cuda import phase_a_fast
 
 NP_FROM_DT = {
     DType.U8: np.uint8, DType.I8: np.int8, DType.U16: np.uint16, DType.I16: np.int16,
@@ -217,14 +218,15 @@ def from_carrier(t: torch.Tensor, size: int) -> np.ndarray:
 
 def fast_encode(img, entry_prev, entry_runbits, order: int, cband: tuple,
                 skipstep: bool, tbits: int, n_words: int, lanewise=None):
-    """Device-resident fast encode (FTL/BASE): phase A, then the K1 pack.
+    """Device-resident fast encode (FTL/BASE): phase A (K9, or its twin
+    on the CPU), then the K1 pack.
 
     img (..., H, W, C) int64 carrier; returns (words (..., n_words) int32,
     total bits, exit_prev, exit_runbits, glen, rung).  Spans (profiling):
     encode.phase_a and encode.pack, on the device's current stream."""
     tiles = img.shape[0] if img.dim() == 4 else 1
     with profiling.span("encode.phase_a", tiles, img.device):
-        codes, lens, exit_prev, exit_runbits, rung = encode_fast_blocks(
+        codes, lens, exit_prev, exit_runbits, rung = phase_a_fast(
             img, entry_prev, entry_runbits, order, cband, skipstep, tbits,
             with_rungs=True, lanewise=lanewise)
     with profiling.span("encode.pack", tiles, img.device):

@@ -1,5 +1,5 @@
-"""Edge inputs of the group pack (K1) and the fused VLC + pack (K8), made
-with numpy from a seed.
+"""Edge inputs of the group pack (K1), the fused VLC + pack (K8) and the
+fast encoder's phase A (K9), made with numpy from a seed.
 
 The kernels scan the group lengths in blocks of BLOCK groups (a decoupled
 look-back across blocks, restarting at every tile) and assemble each
@@ -12,9 +12,18 @@ at the fast modes' symbol counts (S = 17, 33 for u64) and the best modes'
 u64, 8 index uniques), where a K1 block stages more shared memory.  The CPU
 tests hand small versions to qb3_tpu's Pallas kernels in interpret mode and
 to the port's twins; the card tests hand them to the kernels.
+
+K9 computes each group's symbols from its 16 values and the block before
+it, so its edge inputs are groups of chosen mag-sign values: all-zero
+groups, bitsused == 1 (rung 0 with one bit a value), the step's 1*0*
+patterns of every length at low and high rungs (and patterns that are not
+1*0*), u64 groups at rung 63 whose long codes take a 65th bit, and values
+at each type's maximum.
 """
 
 import numpy as np
+
+from qb3_tpu_torch.constants import HILBERT, ZCURVE, curve_offsets
 
 BLOCK = 128  # groups a K1 block packs (qb3_tpu_torch.ops.pack_cuda.PACK_G)
 
@@ -127,3 +136,86 @@ def k8_edit(name: str, gkind, pcode, plen, glen, seed: int = 0):
 def k8_n_words(name: str, glen, n_words: int) -> int:
     """The stream buffer of a K8 case: half the bits for truncation."""
     return int(glen.sum()) // 64 if name == "truncated" else n_words
+
+
+# K9 cases: name -> (dtype, H, W, C, curve); a case runs with the step
+# skipped (FTL) and kept (BASE)
+K9_CASES = {
+    "zero-groups": (np.uint8, 32, 48, 2, HILBERT),
+    "bitsused-1": (np.uint16, 32, 64, 1, HILBERT),
+    "steps-u8": (np.uint8, 16, 4 * 7 * 18, 1, ZCURVE),
+    "steps-u16": (np.uint16, 16, 4 * 15 * 18, 1, HILBERT),
+    "steps-u64": (np.uint64, 8, 4 * 8 * 18, 1, HILBERT),
+    "u64-rung-63": (np.uint64, 16, 64, 3, ZCURVE),
+    "max-u8": (np.uint8, 20, 36, 3, HILBERT),
+    "max-u16": (np.uint16, 20, 36, 4, ZCURVE),
+    "max-u32": (np.uint32, 12, 20, 1, HILBERT),
+    "max-u64": (np.uint64, 12, 20, 2, HILBERT),
+}
+K9_STEP_RUNGS = {"steps-u8": list(range(1, 8)), "steps-u16": list(range(1, 16)),
+                 "steps-u64": [1, 7, 8, 31, 32, 33, 62, 63]}
+
+
+def from_mags(m, h: int, w: int, order: int, dtype):
+    """The (H, W, C) raster whose band-wise deltas in scan order, from a
+    band state of 0, have the mag-sign values m (nblocks, C, 16) uint64:
+    blocks in raster order, values in curve order.  H and W are multiples of
+    4, and the bands are independent (cband = range(C))."""
+    bits = 8 * np.dtype(dtype).itemsize
+    m = np.asarray(m, np.uint64)
+    d = (m >> np.uint64(1)) ^ (np.uint64(0) - (m & np.uint64(1)))  # mag-sign -> two's complement
+    nblocks, nb, _ = m.shape
+    seq = np.cumsum(d.transpose(1, 0, 2).reshape(nb, -1), axis=1, dtype=np.uint64)
+    if bits < 64:
+        seq &= np.uint64((1 << bits) - 1)
+    vals = seq.reshape(nb, h // 4, w // 4, 4, 4)  # band, block-row, block-col, lane
+    img = np.zeros((h, w, nb), np.uint64)
+    for i, (dy, dx) in enumerate(curve_offsets(order)):
+        img[dy::4, dx::4, :] = vals[..., i // 4, i % 4].transpose(1, 2, 0)
+    return img.astype(dtype)
+
+
+def k9_case(name: str, seed: int = 0):
+    """The raster of a K9 case and its curve -> (img (H, W, C), order)."""
+    dtype, h, w, nb, order = K9_CASES[name]
+    rng = np.random.default_rng(seed + len(name))
+    bits = 8 * np.dtype(dtype).itemsize
+    nblocks = (h // 4) * (w // 4)
+    u64 = np.uint64
+    if name.startswith("max-"):
+        top = np.iinfo(dtype).max
+        pick = rng.integers(0, 4, (h, w, nb))
+        img = np.choose(pick, [np.zeros((), dtype), np.full((), top, dtype),
+                               np.full((), top - 1, dtype), np.full((), top >> 1, dtype)])
+        img[: h // 2, : w // 2] = top  # whole groups at the maximum
+        return img.astype(dtype), order
+    if name == "zero-groups":
+        m = np.zeros((nblocks, nb, 16), u64)
+        live = rng.random((nblocks, nb)) < 0.15
+        m[live] = rng.integers(0, 1 << 6, (int(live.sum()), 16)).astype(u64)
+    elif name == "bitsused-1":
+        m = (rng.random((nblocks, nb, 16)) < 0.3).astype(u64)
+        m[::5] = 0
+        m[1::7] = 1
+    elif name.startswith("steps"):
+        # group j: rung r, with bit r set in the first k values (the 1*0*
+        # pattern of length k = 1..16), or at k = 0 in a random set of
+        # values that is not of that form; bits below r random
+        rungs = K9_STEP_RUNGS[name]
+        m = np.zeros((nblocks, nb, 16), u64)
+        lane = np.arange(16)
+        for j in range(nblocks):
+            r, k = rungs[j % len(rungs)], (j // len(rungs)) % 17
+            low = rng.integers(0, 1 << min(r, 62), 16, dtype=np.int64).astype(u64)
+            if r == 63:
+                low |= rng.integers(0, 2, 16).astype(u64) << u64(62)
+            top = lane < k if k else rng.random(16) < 0.5
+            if not k:
+                top[[3, 9]] = True, False  # a 1 after a 0: never 1*0*
+                top[10] = True
+            m[j, :, :] = low | (top.astype(u64) << u64(r))
+    else:  # u64-rung-63: full-range values, bit 63 set in some of a group's
+        m = rng.integers(0, 1 << 64, (nblocks, nb, 16), dtype=np.uint64, endpoint=False)
+        m[::3, :, 5] |= u64(1) << u64(63)
+        m[1::4] &= u64((1 << 63) - 1)
+    return from_mags(m, h, w, order, dtype), order

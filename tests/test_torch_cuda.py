@@ -2,7 +2,9 @@
 "ix" walk), K5a / K5b (walks on gathered windows, the best modes' CF, CF0
 and IDX groups and the edge inputs of tests/k5_edges.py included), K6
 (slab placement, and its stitch entry on the parts of a stitch), K7
-(window gather), K8 (fused image-layout VLC + pack)
+(window gather), K8 (fused image-layout VLC + pack), K9 (the fast phase A,
+also on the edge inputs of tests/pack_edges.py, and on the batch, pipelined
+and one-image encodes with its twin refused)
 and P1-P7 (the Mosaic probes) of
 qb3_tpu_torch against their plain PyTorch twins (K1 also at the best modes'
 symbol counts), and the public decode (best-mode streams included), the
@@ -46,6 +48,8 @@ from qb3_tpu_torch.ops.encode_image import phase_a_image
 from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_plain
 from qb3_tpu_torch.ops.gather_cuda import (GATHER_MAX_R, gather_slabs, gather_slabs_plain,
                                            gather_span)
+from qb3_tpu_torch.ops import phase_a_cuda
+from qb3_tpu_torch.ops.phase_a_cuda import phase_a_fast
 from qb3_tpu_torch.ops.place_cuda import place_parts, place_slabs, place_slabs_plain
 from qb3_tpu_torch.stitch import stitch_words, stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
@@ -468,6 +472,148 @@ def test_public_wide_encode_goes_through_k8(cuda, monkeypatch, dtype, mode):
         np.testing.assert_array_equal(qt.decode(stream, device=cuda)[0], img)
     assert encode_pack_image.launches == k8 + 3
     assert pack_cuda.pack_groups_chunked.launches == k1
+
+
+# ------------------------------------------------ K9 (ops/phase_a_cuda.py)
+
+# name -> (dtype, lead + (H, W, C), curve, cband, skipstep, entry state):
+# every width, 1, 3, 4 and 16 bands with default and other core bands,
+# aligned and unaligned sides, both curves, FTL and BASE, zero and non-zero
+# entry state, no leading axis, (1,) and (128,)
+K9_CARD = {
+    "u8 512x512x3 x128 ftl": (np.uint8, (128, 512, 512, 3), HILBERT, (1, 1, 1), True, "zero"),
+    "u8 512x512x3 base": (np.uint8, (512, 512, 3), HILBERT, (1, 1, 1), False, "random"),
+    "u8 4x4x1 (1,) z base": (np.uint8, (1, 4, 4, 1), ZCURVE, (0,), False, "random"),
+    "u8 513x517x16": (np.uint8, (513, 517, 16), HILBERT, tuple(range(16)), True, "random"),
+    "u8 5x7x3 x128": (np.uint8, (128, 5, 7, 3), HILBERT, (1, 1, 1), True, "random"),
+    "u16 5x7x3 z base": (np.uint16, (5, 7, 3), ZCURVE, (2, 1, 2), False, "random"),
+    "u16 513x517x4 (1,)": (np.uint16, (1, 513, 517, 4), HILBERT, (1, 1, 1, 3), True, "random"),
+    "u16 512x512x1 x128 base": (np.uint16, (128, 512, 512, 1), HILBERT, (0,), False, "zero"),
+    "u32 4x4x16 base": (np.uint32, (4, 4, 16), HILBERT, (5,) * 16, False, "random"),
+    "u32 512x512x4 z": (np.uint32, (512, 512, 4), ZCURVE, (0, 0, 2, 2), True, "random"),
+    "u32 5x7x1 x128 z base": (np.uint32, (128, 5, 7, 1), ZCURVE, (0,), False, "random"),
+    "u64 513x517x3 base": (np.uint64, (513, 517, 3), HILBERT, (1, 1, 1), False, "random"),
+    "u64 512x512x1 z": (np.uint64, (512, 512, 1), ZCURVE, (0,), True, "zero"),
+    "u64 5x7x4 (1,) base": (np.uint64, (1, 5, 7, 4), HILBERT, (1, 1, 1, 3), False, "random"),
+}
+
+
+def _k9_state(lead, nb, tbits, kind, seed, dev):
+    """entry_prev (int64 carrier) and entry_runbits (int32) of shape lead +
+    (nb,): zero, or random values and rungs."""
+    if kind == "zero":
+        z = torch.zeros(*lead, nb, dtype=torch.int64, device=dev)
+        return z, z
+    rng = np.random.default_rng(seed)
+    prev = rng.integers(0, 1 << 64, (*lead, nb), dtype=np.uint64, endpoint=False)
+    prev = prev & np.uint64((1 << tbits) - 1) if tbits < 64 else prev
+    runbits = rng.integers(0, tbits, (*lead, nb)).astype(np.int32)
+    return (torch.from_numpy(prev.view(np.int64)).to(dev),
+            torch.from_numpy(runbits).to(dev))
+
+
+def _k9_equal(img, prev, runbits, order, cband, skipstep, tbits):
+    """K9 (one launch, the kernel alone on the device) against its twin on
+    the same card tensors, every output, tolerance zero."""
+    for with_rungs in (True, False):
+        before = phase_a_fast.launches
+        got = phase_a_fast(img, prev, runbits, order, cband, skipstep, tbits, with_rungs)
+        torch.cuda.synchronize()
+        assert phase_a_fast.launches == before + 1
+        want = encode_fast_blocks(img, prev, runbits, order, cband, skipstep, tbits, with_rungs)
+        assert len(got) == len(want)
+        for name, g, w in zip(("codes", "lens", "exit_prev", "exit_runbits", "rung"), got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype and g.is_cuda, name
+            assert torch.equal(g, w), name
+    ops = device_profile(lambda: phase_a_fast(img, prev, runbits, order, cband, skipstep,
+                                              tbits, True), 3)["per_op"]
+    assert list(ops) and all("phase_a_kernel" in op for op in ops), ops
+
+
+@pytest.mark.parametrize("name", list(K9_CARD))
+def test_k9_matches_twin(cuda, name):
+    dtype, shape, order, cband, skipstep, state = K9_CARD[name]
+    *lead, h, w, nb = shape
+    tbits = 8 * np.dtype(dtype).itemsize
+    n = int(np.prod(lead))
+    if dtype == np.uint64 and not skipstep:
+        img = _full_range_u64((n, h, w, nb), seed=900)  # rung 63, the 65th bit
+    else:
+        img = np.stack([headline_image(h, w, nb, seed=900 + i, dtype=dtype) for i in range(n)])
+        img[:, ::8, ::8] = np.iinfo(dtype).max  # high rungs beside the grain's low ones
+    x = to_carrier(img.reshape(*lead, h, w, nb), cuda)
+    prev, runbits = _k9_state(lead, nb, tbits, state, 901, cuda)
+    _k9_equal(x, prev, runbits, order, cband, skipstep, tbits)
+
+
+@pytest.mark.parametrize("skipstep", [True, False], ids=["ftl", "base"])
+@pytest.mark.parametrize("name", list(pack_edges.K9_CASES))
+def test_k9_edges_match_twin(cuda, name, skipstep):
+    """K9 on the edge inputs of tests/pack_edges.py (all-zero groups,
+    bitsused 1, 1*0* step patterns of every length at low and high rungs,
+    u64 rung-63 groups with the 65th bit, values at each type's maximum),
+    from a zero and a random entry state, against its twin."""
+    img, order = pack_edges.k9_case(name)
+    nb = img.shape[-1]
+    tbits = 8 * img.itemsize
+    x = to_carrier(img, cuda)
+    for state in ("zero", "random"):
+        prev, runbits = _k9_state((), nb, tbits, state, 902, cuda)
+        _k9_equal(x, prev, runbits, order, tuple(range(nb)), skipstep, tbits)
+
+
+def _refuse_k9_twin(monkeypatch):
+    def refuse(*_, **__):
+        raise AssertionError("K9's twin ran on the card's path")
+
+    monkeypatch.setattr(phase_a_cuda, "encode_fast_blocks", refuse)
+
+
+@pytest.mark.parametrize("dtype,mode,index", [(np.uint8, Mode.FTL, "ic"),
+                                              (np.uint8, Mode.BASE_H, True),
+                                              (np.uint8, Mode.BASE_Z, False),
+                                              (np.uint16, Mode.FTL, "ic")])
+def test_batch_and_pipelined_encodes_go_through_k9(cuda, monkeypatch, dtype, mode, index):
+    """batch.encode_tiles and the pipelined encode on the card, K9's twin
+    refused: the CPU's streams (the headline tile's to its sha256), one K9
+    launch a batch."""
+    import hashlib
+
+    tiles = np.stack([headline_image(dtype=dtype)]
+                     + [headline_image(seed=3000 + i, dtype=dtype) for i in range(5)])
+    batches = [tiles, tiles[::-1], tiles[1:4]]
+    want = qt.encode_tiles(tiles, mode=mode, index=index, device="cpu")
+    want_piped = list(pipeline.encode_tiles_pipelined(iter(batches), mode=mode, index=index,
+                                                      device="cpu"))
+    if dtype == np.uint8 and mode == Mode.FTL:
+        assert hashlib.sha256(want[0]).hexdigest() == benchutil.HEADLINE_SHA256
+        assert want_piped[0] == want
+    _refuse_k9_twin(monkeypatch)
+    before = phase_a_fast.launches
+    assert qt.encode_tiles(tiles, mode=mode, index=index, device=cuda) == want
+    assert phase_a_fast.launches == before + 1
+    got = list(pipeline.encode_tiles_pipelined(iter(batches), mode=mode, index=index,
+                                               device=cuda))
+    assert phase_a_fast.launches == before + 4
+    assert got == want_piped
+
+
+def test_one_image_encodes_go_through_k9(cuda, monkeypatch):
+    """The one-image encode of a u8 tile (its stream to the headline sha256)
+    and of a u16 raster whose sides are not multiples of 4 (not K8's) take
+    K9 once each, with its twin refused, and write the CPU's bytes."""
+    import hashlib
+
+    img8, img16 = headline_image(), headline_image(513, 517, 2, seed=903, dtype=np.uint16)
+    want = [qt.encode(img8, index="ic", device="cpu"),
+            qt.encode(img16, mode=Mode.BASE_H, index=True, device="cpu")]
+    _refuse_k9_twin(monkeypatch)
+    before = phase_a_fast.launches
+    got = [qt.encode(img8, index="ic", device=cuda),
+           qt.encode(img16, mode=Mode.BASE_H, index=True, device=cuda)]
+    assert phase_a_fast.launches == before + 2
+    assert got == want
+    assert hashlib.sha256(got[0]).hexdigest() == benchutil.HEADLINE_SHA256
 
 
 def test_k7_matches_twin(cuda):
@@ -905,7 +1051,7 @@ _TWINS = (("wavefront_cuda", "wavefront8_plain"), ("wavefront_cuda", "wavefront_
           ("gather_cuda", "gather_slabs_plain"), ("pack_cuda", "pack_groups"),
           ("pack_cuda", "extract_windows_plain"), ("chunkwalk_cuda", "chunkwalk8_plain"),
           ("fusedwin_cuda", "wavefront_fused_plain"), ("encode_cuda", "encode_pack_image_plain"),
-          ("place_cuda", "place_slabs_plain"))
+          ("place_cuda", "place_slabs_plain"), ("phase_a_cuda", "encode_fast_blocks"))
 # "K6": the stitch entry, which every device stitch launches; "K6 slabs":
 # the slab entry, which no path launches
 _SHARD_KERNELS = {"K1": pack_cuda.pack_groups_chunked, "K2": chunkwalk8,

@@ -101,6 +101,28 @@ def test_batch_axis_matches_single_images():
         np.testing.assert_array_equal(rung[i].numpy(), np.asarray(jr))
 
 
+@pytest.mark.parametrize("skipstep", [True, False], ids=["ftl", "base"])
+@pytest.mark.parametrize("name", list(pack_edges.K9_CASES))
+def test_k9_twin_edges_match(name, skipstep):
+    """K9's wrapper on a CPU tensor (its twin) against qb3_tpu's phase A on
+    the K9 edge inputs of tests/pack_edges.py, from a random entry state."""
+    from qb3_tpu_torch.ops.phase_a_cuda import phase_a_fast
+
+    img, order = pack_edges.k9_case(name)
+    nb, tbits = img.shape[-1], 8 * img.itemsize
+    rng = np.random.default_rng(len(name))
+    prev = rng.integers(0, 1 << min(tbits, 63), nb, dtype=np.uint64).astype(img.dtype)
+    runbits = rng.integers(0, tbits, nb).astype(np.int32)
+    cband = tuple(range(nb))
+    j = j_encode_fast_blocks(jnp.asarray(img), jnp.asarray(prev), jnp.asarray(runbits),
+                             order, cband, skipstep, with_rungs=True)
+    t = phase_a_fast(to_carrier(img, "cpu"), to_carrier(prev, "cpu"),
+                     torch.from_numpy(runbits), order, cband, skipstep, tbits, True)
+    for what, a, b in zip(("codes", "lens", "exit_prev", "exit_runbits", "rung"), j, t):
+        b = b.numpy().view(np.uint64) if b.dtype == torch.int64 else b.numpy().astype(np.uint64)
+        np.testing.assert_array_equal(b, np.asarray(a).astype(np.uint64), err_msg=what)
+
+
 def _codes_lens(name):
     make, order, cband, skipstep = CASES[name]
     img = make()
