@@ -14,7 +14,10 @@ what a run records here:
   * samples: lists a driver keeps (request latencies, service times);
   * profile: the traced slice's device records (torch.profiler), reduced
     to the device-active time, its share of the slice's wall time, the
-    device operations by time and the idle gaps by host stage.
+    device operations by time and the idle gaps by host stage;
+  * host: what the card machine's host exposed over the window and, in a
+    traced run, the host yardstick timed after it (host.py): the result's
+    device.host.
 
 Nothing here runs at import time; the program is imported by the drivers.
 """
@@ -30,7 +33,7 @@ import time
 
 import numpy as np
 
-from . import registry
+from . import host, registry
 
 # module names whose presence after the window refuses the run: the JAX
 # package and JAX itself (top-level names compared whole)
@@ -53,6 +56,7 @@ class Run:
         self.spans = {}
         self.samples = {}
         self.profile = None
+        self.host = {}
 
     def rng(self, *tag: int) -> np.random.Generator:
         """A generator drawn from the run's seed and a tag of its own."""
@@ -171,7 +175,7 @@ def reduce_events(events, wall: float) -> dict:
     wall seconds -> active_s (the union of the device records), busy_s,
     wall_s, per_op (device seconds by name) and gaps (idle seconds by the
     innermost host stage, "pb:<name>", open at each gap's middle)."""
-    per_op, dev, host = {}, [], []
+    per_op, dev, ranges = {}, [], []
     for on_device, name, a, b in events:
         if on_device:
             # the sentinels, and the device-side copies of the host ranges
@@ -181,7 +185,7 @@ def reduce_events(events, wall: float) -> dict:
             per_op[name] = per_op.get(name, 0.0) + (b - a) / 1e6
             dev.append((a, b))
         elif name.startswith("pb:"):
-            host.append((a, b, name[3:]))
+            ranges.append((a, b, name[3:]))
     if not dev:
         raise RuntimeError("the profile recorded no device activity")
     active = _union_s(dev)
@@ -190,7 +194,7 @@ def reduce_events(events, wall: float) -> dict:
     for a, b in sorted(dev):
         if reach is not None and a > reach:
             mid = (a + reach) / 2
-            inside = [h for h in host if h[0] <= mid <= h[1]]
+            inside = [h for h in ranges if h[0] <= mid <= h[1]]
             name = min(inside, key=lambda h: h[1] - h[0])[2] if inside else "other"
             gaps[name] = gaps.get(name, 0.0) + (a - reach) / 1e6
         reach = b if reach is None else max(reach, b)
@@ -216,6 +220,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device: str =
     driver = registry.driver(cell["driver"])
     metrics = registry.per_layer(workload, root) if trace else []
     run = Run(seed, device, trace)
+    bus_id = host.card_bus_id() if device == "cuda" else None
     # the tests' faults replace the entry the window drives before set-up
     saved = faults(cell, driver) if faults else []
     try:
@@ -232,9 +237,17 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device: str =
 
             torch.cuda.synchronize()
         setup_s = time.perf_counter() - t_start
+        before = host.counters()
         values = driver.window(state, seconds, run, "window")
+        after = host.counters()
         if trace and device == "cuda":
             _profile(run, lambda: driver.window(state, SLICE_S, run, "slice"))
+        run.host = dict(host.static_facts(bus_id=bus_id), **host.window_facts(before, after),
+                        raw_MBps_by_sixth=host.rate_by_part(run.ticks["window"], before["t"],
+                                                            after["t"]))
+        if trace:
+            seed_probe = int(run.rng(9).integers(2**63))
+            run.host["probe"] = host.probe(seed_probe, device == "cuda")
     finally:
         restore(saved)
     found = forbidden_modules()
@@ -275,6 +288,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device: str =
         gaps = sorted(run.profile["gaps"].items(), key=lambda x: -x[1])[:10]
         out["breakdown"] = {"device_ops": [[k, v] for k, v in ops],
                             "idle_gaps": [[k, v] for k, v in gaps]}
+    dev["host"] = run.host
     out["device"] = dev
     out["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}
     return out
