@@ -44,7 +44,7 @@ def setup(cell: dict, run) -> dict:
             sent.append(idx)
             yield [streams[j] for j in idx]
 
-    st = dict(pool=pool, sizes=[len(s) for s in streams], sent=sent, kept=[], missing=0,
+    st = dict(pool=pool, conf=conf, sizes=[len(s) for s in streams], sent=sent, kept=[], missing=0,
               attempted=0, pos=run.rng(4),
               gen=foreign.decode_streams_pipelined(feed(), device=run.device))
     for _ in range(cell["warmup_batches"]):
@@ -72,6 +72,6 @@ def window(st: dict, seconds: float, run, phase: str) -> dict:
 
 def verify(st: dict, run):
     st.pop("gen").close()
-    wrong = loops.arrays_differ(st["kept"], st["pool"])
+    wrong = loops.arrays_differ(st["kept"], st["pool"], st["conf"])
     return ({"tiles_differ": (wrong, 0), "tiles_missing": (st["missing"], 0)},
             st["attempted"], st["missing"])

@@ -33,7 +33,7 @@ def setup(cell: dict, run) -> dict:
         streams += q.encode_tiles(pool[i: i + 128], mode=loops.MODES[conf["mode"]],
                                   coreband=conf.get("coreband"),
                                   index=conf.get("index") or False, device=run.device)
-    st = dict(pool=pool, streams=streams, traffic=traffic, rate=cell["rate_per_s"],
+    st = dict(pool=pool, conf=conf, streams=streams, traffic=traffic, rate=cell["rate_per_s"],
               share=cell["check_share"], keep=run.rng(4), kept=[], failed=0, attempted=0,
               decode=q.decode, device=run.device)
     for i in range(cell["warmup_requests"]):
@@ -67,6 +67,6 @@ def window(st: dict, seconds: float, run, phase: str) -> dict:
 
 
 def verify(st: dict, run):
-    wrong = loops.arrays_differ(st["kept"], st["pool"])
+    wrong = loops.arrays_differ(st["kept"], st["pool"], st["conf"])
     return ({"tiles_differ": (wrong, 0), "requests_failed": (st["failed"], 0)},
             st["attempted"], st["failed"])

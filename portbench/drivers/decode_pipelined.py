@@ -40,7 +40,7 @@ def setup(cell: dict, run) -> dict:
             sent.append(idx)
             yield [streams[j] for j in idx]
 
-    st = dict(pool=pool, sizes=[len(s) for s in streams], sent=sent, kept=[], missing=0,
+    st = dict(pool=pool, conf=conf, sizes=[len(s) for s in streams], sent=sent, kept=[], missing=0,
               attempted=0, pos=run.rng(4),
               gen=pipeline.decode_tiles_pipelined(feed(), device=run.device))
     for _ in range(cell["warmup_batches"]):

@@ -16,7 +16,7 @@ import numpy as np
 
 from .reference import qb3ref
 
-MODES = {"FTL": qb3ref.FTL, "CF_H": qb3ref.CF_H}  # a configuration's "mode"
+MODES = qb3ref.MODES  # a configuration's "mode" -> the mode's number
 
 
 def closed_window(step, seconds: float, run, phase: str) -> float:
@@ -59,16 +59,36 @@ def pick(kept: list, n: int, rng: np.random.Generator) -> list:
     return out
 
 
+def reference_stream(conf: dict, raster: np.ndarray) -> bytes:
+    """The plain reference's stream of a raster under a configuration: its
+    "mode", "index" (the sidecar), "coreband", "quanta" (the step, 1 where
+    the configuration has none) and "away" (ties away from zero; false where
+    it has none)."""
+    return qb3ref.encode(raster, MODES[conf["mode"]], conf.get("index"), conf.get("coreband"),
+                         conf.get("quanta", 1), conf.get("away", False))
+
+
+def reference_raster(conf: dict, raster: np.ndarray) -> np.ndarray:
+    """What the configuration's stream of a raster decodes to: the raster
+    itself where the configuration is lossless or its stream stores the raw
+    raster, else the raster quantized and multiplied back."""
+    q = conf.get("quanta", 1)
+    if q < 2 or qb3ref.parse_header(reference_stream(conf, raster))["mode"] == qb3ref.STORED:
+        return raster
+    return qb3ref.dequantize(qb3ref.quantize(raster, q, conf.get("away", False)), q)
+
+
 def streams_differ(kept: list, pool: np.ndarray, conf: dict, n: int, rng) -> int:
     """How many of n drawn streams differ from the reference encoder's
     stream of the same raster, header, sidecar and payload."""
-    mode = MODES[conf["mode"]]
-    return sum(s != qb3ref.encode(pool[i], mode, conf.get("index"), conf.get("coreband"))
-               for i, s in pick(kept, n, rng))
+    return sum(s != reference_stream(conf, pool[i]) for i, s in pick(kept, n, rng))
 
 
-def arrays_differ(kept: list, pool: np.ndarray) -> int:
-    """How many kept (pool index, decoded array) pairs differ from the
-    raster the stream came from (the codec is lossless)."""
-    return sum(a.dtype != pool[i].dtype or a.shape != pool[i].shape
-               or not np.array_equal(a, pool[i]) for i, a in kept)
+def arrays_differ(kept: list, pool: np.ndarray, conf: dict) -> int:
+    """How many kept (pool index, decoded array) pairs differ from what the
+    stream of the raster they came from decodes to (reference_raster): the
+    raster itself in a lossless configuration."""
+    def wrong(a, want):
+        return a.dtype != want.dtype or a.shape != want.shape or not np.array_equal(a, want)
+
+    return sum(wrong(a, reference_raster(conf, pool[i])) for i, a in kept)

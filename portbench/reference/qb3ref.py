@@ -1,16 +1,20 @@
 """Plain NumPy QB3: the benchmark's reference encoder and decoder.
 
 Written from the stream format (lucianpls/QB3, doc/QB3.md and the
-encoder it describes) for what the benchmark runs: u8 and u16 rasters
-whose sides are multiples of 4, in FTL with the "ic" chunk sidecar and in
-CF_H (common-factor and index groups on the Hilbert curve) without a
-sidecar.  It imports NumPy alone and nothing of the program under test.
-The encoder is vectorised over the groups of one raster (a group is one
-band of one 4x4 block, 16 values); the decoder is a serial walk over the
-bits, one group after another, as the format is defined.
+encoder it describes) for what the benchmark's configurations run: 8- and
+16-bit rasters, unsigned or signed, whose sides are multiples of 4; FTL and
+BASE_H with no sidecar or the "ic" chunk sidecar, CF_H without one, and
+their RLE0 forms RLE_H and CF_RLE_H; lossless or quantized by a step
+`quanta` (the "QV" chunk).  It imports NumPy alone and nothing of the
+program under test.  The encoder is vectorised over the groups of a slice
+of block rows (a group is one band of one 4x4 block, 16 values) and carries
+each band's state from slice to slice, so that a scene of any height takes
+a bounded amount of memory; the decoder is a serial walk over the bits, one
+group after another, as the format is defined.
 
-    stream = encode(img, FTL, index="ic")     # bytes
-    img = decode(stream)                      # (H, W, C) array
+    stream = encode(img, FTL, index="ic")            # bytes
+    stream = encode(dem, MODES["CF_RLE_H"], quanta=4)
+    img = decode(stream)                              # (H, W, C) array
 """
 
 from __future__ import annotations
@@ -22,9 +26,16 @@ import numpy as np
 B, B2 = 4, 16
 HILBERT = 0x01548CD9AEFB7623
 ZCURVE = 0x0145236789CDABEF
-BASE_H, CF_H, FTL, STORED = 4, 5, 8, 255
-DTYPES = {np.dtype(np.uint8): 0, np.dtype(np.uint16): 2}
-NP_DTYPES = {0: np.uint8, 2: np.uint16}
+BASE_H, CF_H, RLE_H, CF_RLE_H, FTL, STORED = 4, 5, 6, 7, 8, 255
+# a configuration's "mode" -> the mode's number in the header
+MODES = {"FTL": FTL, "BASE_H": BASE_H, "CF_H": CF_H, "RLE_H": RLE_H, "CF_RLE_H": CF_RLE_H}
+RLE_BASE = {RLE_H: BASE_H, CF_RLE_H: CF_H}  # an RLE0 mode's coding mode
+# the header's type codes (QB3.h:40): a signed raster is coded as its
+# unsigned bit pattern, and only the header says it is signed
+NP_DTYPES = {0: np.uint8, 1: np.int8, 2: np.uint16, 3: np.int16}
+DTYPES = {np.dtype(t): code for code, t in NP_DTYPES.items()}
+UNSIGNED = {1: np.uint8, 2: np.uint16}
+SLICE_GROUPS = 1 << 16  # groups the encoder vectorises over at once, at most
 IC_K = 8  # blocks a chunk of the "ic" sidecar
 _IC_WIDE = 0x8000
 _LANES = np.arange(B2)
@@ -140,10 +151,12 @@ def smags(m, tbits: int):
     return ((m >> 1) ^ -(m & 1)) & ((1 << tbits) - 1)
 
 
-def groups_of(img: np.ndarray, cband, order: int = HILBERT):
-    """(H, W, C) raster -> (nblocks, C, 16) mag-sign values along the curve:
-    blocks row-major, each dependent band less its core band, each band's
-    values less the one before along the whole scan (0 before the first)."""
+def groups_of(img: np.ndarray, cband, order: int = HILBERT, prev=None):
+    """(H, W, C) unsigned raster -> (nblocks, C, 16) mag-sign values along
+    the curve, and each band's last value: blocks row-major, each dependent
+    band less its core band, each band's values less the one before along
+    the whole scan (prev before the first: the last value of the block rows
+    above, 0 at the top)."""
     h, w, nb = img.shape
     tbits = 8 * img.dtype.itemsize
     mask = (1 << tbits) - 1
@@ -152,9 +165,10 @@ def groups_of(img: np.ndarray, cband, order: int = HILBERT):
     dep = [c for c in range(nb) if cband[c] != c]
     vals[:, dep] = (vals[:, dep] - vals[:, [cband[c] for c in dep]]) & mask
     seq = vals.transpose(1, 0, 2).reshape(nb, -1)
-    prev = np.concatenate([np.zeros((nb, 1), np.int64), seq[:, :-1]], axis=1)
-    m = mags((seq - prev) & mask, tbits)
-    return m.reshape(nb, -1, B2).transpose(1, 0, 2)
+    first = np.zeros(nb, np.int64) if prev is None else prev
+    before = np.concatenate([first[:, None], seq[:, :-1]], axis=1)
+    m = mags((seq - before) & mask, tbits)
+    return m.reshape(nb, -1, B2).transpose(1, 0, 2), seq[:, -1]
 
 
 def step_flip(m, rung):
@@ -169,10 +183,12 @@ def step_flip(m, rung):
     return m ^ (hit.astype(np.int64) << rung[..., None])
 
 
-def _rungs(m):
+def _rungs(m, old0):
+    """Each group's used bits, rung, and the rung of the band's group before
+    it (old0 before the first)."""
     used = np.bitwise_or.reduce(m, axis=-1)
     rung = topbit(used | 1)
-    old = np.concatenate([np.zeros_like(rung[:1]), rung[:-1]], axis=0)
+    old = np.concatenate([old0[None], rung[:-1]], axis=0)
     return used, rung, old
 
 
@@ -183,10 +199,11 @@ def _values(m, rung, step: bool):
     return group_code(m, np.maximum(rung, 1)[..., None])
 
 
-def fast_symbols(m, step: bool, tbits: int):
+def fast_symbols(m, step: bool, tbits: int, old0):
     """FTL / BASE groups -> codes, lens (nblocks, C, 17): the codeswitch
-    (with the all-zero / all-one-bit flag at rung 0), then 16 values."""
-    used, rung, old = _rungs(m)
+    (with the all-zero / all-one-bit flag at rung 0), then 16 values; and
+    each group's rung.  old0: each band's rung before the first block."""
+    used, rung, old = _rungs(m, old0)
     cs, csl = codeswitch(rung - old, ubits(tbits))
     rung0 = used <= 1
     pc = np.where(rung0, cs | ((used & 1) << csl), cs)
@@ -277,14 +294,16 @@ def _cf_group(m, old, u: int, tbits: int):
                 + np.where(at, lat, lown) + body)
 
 
-def best_symbols(m, tbits: int):
+def best_symbols(m, tbits: int, old0, last0):
     """CF / CF_H groups -> codes, lens (nblocks, C, 27): each group takes the
     ordinary, the common-factor or the index encoding, the last where it is
     shorter than the other and the other is long enough to try it (36 + 3u +
     2 rung bits); a band's last factor carries over, so a factor equal to it
-    costs one bit."""
+    costs one bit.  Also each group's rung and each band's last factor after
+    the last block.  old0, last0: each band's rung and last factor before the
+    first block."""
     u = ubits(tbits)
-    used, rung, old = _rungs(m)
+    used, rung, old = _rungs(m, old0)
     rung0 = used <= 1
     active = ~rung0
     cs, csl = codeswitch(rung - old, u)
@@ -299,14 +318,15 @@ def best_symbols(m, tbits: int):
     base_diff = np.where(has, cf["size_diff"], plain)
     win_same = try_idx & (base_same >= thr) & (isize < base_same)
     win_diff = try_idx & (base_diff >= thr) & (isize < base_diff)
-    # the band's last factor: set by each group that writes its factor
+    # the band's last factor: set by each group that writes its factor, and
+    # read by the band's next group
     is_set = active & has & ~win_diff
     nblocks, nb = m.shape[:2]
-    pcf = np.zeros((nblocks, nb), np.int64)
-    last = np.zeros(nb, np.int64)
-    for b in range(nblocks):  # a short loop of vector steps
-        pcf[b] = last
-        last = np.where(is_set[b], cf["cf"][b], last)
+    setter = np.where(is_set, np.arange(nblocks)[:, None], -1)
+    np.maximum.accumulate(setter, axis=0, out=setter)
+    factors = np.where(setter >= 0, np.take_along_axis(cf["cf"], np.maximum(setter, 0), 0),
+                       last0[None])
+    pcf = np.concatenate([last0[None], factors[:-1]], axis=0)
     same = pcf == cf["cf"]
     use_cf = active & has
     win = np.where(same, win_same, win_diff)
@@ -325,7 +345,7 @@ def best_symbols(m, tbits: int):
     uc, ul = np.where(wb, iuc, 0), np.where(wb, iul, 0)
     codes = np.concatenate([s0c[..., None], s1c[..., None], s2c[..., None], vc, uc], -1)
     lens = np.concatenate([s0l[..., None], s1l[..., None], s2l[..., None], vl, ul], -1)
-    return codes, lens
+    return codes, lens, rung, factors[-1]
 
 
 def pack_bits(codes, lens):
@@ -364,17 +384,22 @@ def ic_sidecar(glen, rung, k: int = IC_K):
 
 
 def header(w: int, h: int, nb: int, dtype: int, mode: int, cband, index=None,
-           sig: bytes = b"ic", order: int = HILBERT) -> bytes:
+           sig: bytes = b"ic", order: int = HILBERT, quanta: int = 1) -> bytes:
     """Main header ("QB3\\x80", sizes less one, bands less one, type, mode),
-    then the chunks: "CB" core bands where one differs from its band, "SC"
-    the curve where it is not the z-curve, the sidecar in pieces of at most
-    65530 bytes (each chunk's u16 length counts its own 4 header bytes),
-    and "DT", which the payload follows."""
+    then the chunks: "CB" core bands where one differs from its band, "QV"
+    the step where it is 2 or more (u16 byte count, then the step in as few
+    little-endian bytes as hold it), "SC" the curve where it is not the
+    z-curve, the sidecar in pieces of at most 65530 bytes (each chunk's u16
+    length counts its own 4 header bytes), and "DT", which the payload
+    follows.  A stored stream keeps only "QV"."""
     out = b"QB3\x80" + struct.pack("<HHBBB", w - 1, h - 1, nb - 1, dtype, mode)
+    if mode != STORED and any(cband[c] != c for c in range(nb)):
+        out += b"CB" + struct.pack("<H", nb) + bytes(cband)
+    if quanta >= 2:
+        size = (int(quanta).bit_length() + 7) // 8
+        out += b"QV" + struct.pack("<H", size) + int(quanta).to_bytes(size, "little")
     if mode == STORED:
         return out + b"DT"
-    if any(cband[c] != c for c in range(nb)):
-        out += b"CB" + struct.pack("<H", nb) + bytes(cband)
     if order != ZCURVE:
         out += b"SC" + struct.pack("<HQ", 8, order)
     for pos in range(0, len(index or b""), 65530):
@@ -383,42 +408,167 @@ def header(w: int, h: int, nb: int, dtype: int, mode: int, cband, index=None,
     return out + b"DT"
 
 
-def encode(img: np.ndarray, mode: int = FTL, index=None, cband=None) -> bytes:
-    """One raster (H, W, C) u8 / u16, sides multiples of 4 -> its stream in
-    FTL, BASE_H (index None or "ic") or CF_H (index None); the stored form
-    where the coded one is not smaller than the raw bytes."""
+# ------------------------------------------------------------------ quanta
+
+def quantize(img: np.ndarray, q: int, away: bool = False) -> np.ndarray:
+    """Each value divided by the step q in the signed domain, rounded to the
+    nearest whole number, a tie toward zero, or away from it with away
+    (QB3encode.cpp:137-186)."""
+    v = img.astype(np.int64)
+    r, rem = np.divmod(np.abs(v), q)
+    r += (2 * rem > q) | ((2 * rem == q) & away)
+    return (np.sign(v) * r).astype(img.dtype)
+
+
+def dequantize(img: np.ndarray, q: int) -> np.ndarray:
+    """Each value times the step q, held at the type's largest value, and in
+    a signed type with q > 2 at its smallest; a product outside the type
+    otherwise wraps (QB3decode.cpp:77-107)."""
+    lim = np.iinfo(img.dtype)
+    v = np.minimum(img.astype(np.int64) * q, lim.max)
+    if lim.min < 0 and q > 2:
+        v = np.maximum(v, lim.min)
+    return v.astype(img.dtype)
+
+
+# ------------------------------------------------------------------ RLE0
+
+def rle0_encode(data: bytes) -> bytes:
+    """The RLE0 byte pass over a payload (doc/QB3.md): "ff ff ff" stands for
+    two 0xff bytes and "ff ff n" (n < 0xff) for 4 + n zero bytes.  Pairs of
+    0xff are taken from the start of each run of them; a run of 4 or more
+    zeros goes in pieces of at most 258, but one zero goes first as itself
+    where the byte before is a lone 0xff, which would read as an escape
+    with them.  No escape starts in the last two bytes."""
+    buf = np.frombuffer(data, np.uint8)
+    n = buf.size
+    if n < 3:
+        return data
+    edge = np.flatnonzero(buf[1:] != buf[:-1]) + 1
+    start = np.concatenate([[0], edge])
+    length = np.diff(np.concatenate([start, [n]]))
+    val = buf[start]
+    runs = (val == 0xFF) | ((val == 0) & (length >= 4))
+    out, pos, lone_ff = bytearray(), 0, False
+    for s, k, v in zip(start[runs].tolist(), length[runs].tolist(), val[runs].tolist()):
+        if s > pos:
+            out += data[pos:s]
+            lone_ff = False
+        pos = s + k
+        if v == 0xFF:
+            pairs = min(k // 2, max(0, (n - 1 - s) // 2))  # each starts before n - 2
+            out += b"\xff\xff\xff" * pairs + b"\xff" * (k - 2 * pairs)
+            lone_ff = k > 2 * pairs
+            continue
+        if lone_ff:
+            out.append(0)
+            k -= 1
+        while k >= 4:
+            piece = min(k, 258)
+            out += bytes((0xFF, 0xFF, piece - 4))
+            k -= piece
+        out += bytes(k)
+        lone_ff = False
+    return bytes(out + data[pos:])
+
+
+def rle0_decode(data: bytes, limit: int) -> bytes:
+    """Undo rle0_encode; raises where the bytes would pass `limit`, the
+    raster's raw size (QB3decode.cpp:267-307, :396-413)."""
+    buf = np.frombuffer(data, np.uint8)
+    n = buf.size
+    pairs = np.flatnonzero((buf[:-1] == 0xFF) & (buf[1:] == 0xFF)) if n > 1 else []
+    parts, pos, size = [], 0, 0
+    for e in (int(x) for x in pairs):
+        if e < pos or e >= n - 2:
+            continue
+        fill = b"\xff\xff" if buf[e + 2] == 0xFF else bytes(4 + int(buf[e + 2]))
+        size += e - pos + len(fill)
+        if size > limit:
+            raise ValueError("RLE0 expands past the raster's size")
+        parts += [data[pos:e], fill]
+        pos = e + 3
+    if size + n - pos > limit:
+        raise ValueError("RLE0 expands past the raster's size")
+    return b"".join(parts) + data[pos:]
+
+
+# ------------------------------------------------------------------ stream
+
+def max_size(w: int, h: int, nb: int, itemsize: int) -> int:
+    """The encoder's bound on a stream's bytes (QB3encode.cpp:112-118)."""
+    n = 16 * (-(-w // B)) * (-(-h // B)) * nb
+    return 1024 + (17 + 128 * itemsize) * n // 128
+
+
+def _append_bits(out: bytearray, nbits: int, codes, lens) -> int:
+    """Pack symbols behind the nbits already in out -> the new bit count."""
+    k = nbits & 7
+    carry = out.pop() if k else 0  # the last byte's k bits so far
+    data, total = pack_bits(np.concatenate([[carry], codes.reshape(-1)]),
+                            np.concatenate([[k], lens.reshape(-1)]))
+    out += data
+    return nbits - k + total
+
+
+def encode(img: np.ndarray, mode: int = FTL, index=None, cband=None, quanta: int = 1,
+           away: bool = False) -> bytes:
+    """One raster (H, W, C) of u8, i8, u16 or i16, sides multiples of 4 ->
+    its stream in a mode of MODES: FTL, BASE_H (index None or "ic"), CF_H,
+    RLE_H or CF_RLE_H (index None); quantized by the step quanta where it is
+    2 or more.  The RLE0 modes take the pass where the coded stream is at
+    most half the bound and the pass makes the payload smaller and fits the
+    bound, and name their coding mode otherwise (QB3encode.cpp:536-566);
+    the other modes store the raw raster where the coded stream is not
+    smaller than it."""
     h, w, nb = img.shape
     if h % B or w % B or img.dtype not in DTYPES:
-        raise ValueError("the reference takes u8 / u16 rasters with sides multiples of 4")
+        raise ValueError("the reference takes 8- and 16-bit rasters with sides multiples of 4")
+    if mode not in MODES.values():
+        raise ValueError(f"mode {mode} is not in the reference")
+    base = RLE_BASE.get(mode, mode)
+    if index is not None and (index != "ic" or mode not in (FTL, BASE_H)):
+        raise ValueError("the reference writes the ic sidecar, in FTL and BASE_H")
     tbits = 8 * img.dtype.itemsize
     cband = list(cband) if cband is not None else default_cband(nb)
-    m = groups_of(img, cband)
-    if mode == CF_H:
-        if index:
-            raise ValueError("the reference writes CF_H without a sidecar")
-        codes, lens = best_symbols(m, tbits)
-        side = None
-    elif mode in (FTL, BASE_H):
-        codes, lens, rung = fast_symbols(m, mode != FTL, tbits)
-        side = ic_sidecar(lens.sum(-1), rung) if index == "ic" else None
-    else:
-        raise ValueError(f"mode {mode} is not in the reference")
-    payload, _ = pack_bits(codes, lens)
-    out = header(w, h, nb, DTYPES[img.dtype], mode, cband, side) + payload
+    prev, old, last = (np.zeros(nb, np.int64) for _ in range(3))
+    payload, nbits, glens, rungs = bytearray(), 0, [], []
+    rows = B * max(1, SLICE_GROUPS // (w // B * nb))
+    for y in range(0, h, rows):  # block rows, each band's state carried over
+        part = quantize(img[y: y + rows], quanta, away) if quanta >= 2 else img[y: y + rows]
+        m, prev = groups_of(part.view(UNSIGNED[img.dtype.itemsize]), cband, prev=prev)
+        if base == CF_H:
+            codes, lens, rung, last = best_symbols(m, tbits, old, last)
+        else:
+            codes, lens, rung = fast_symbols(m, base != FTL, tbits, old)
+        old = rung[-1]
+        glens.append(lens.sum(-1))
+        rungs.append(rung)
+        nbits = _append_bits(payload, nbits, codes, lens)
+    side = ic_sidecar(np.concatenate(glens), np.concatenate(rungs)) if index else None
+    dt = DTYPES[img.dtype]
+    out = header(w, h, nb, dt, base, cband, side, quanta=quanta) + payload
+    if base != mode:
+        bound = max_size(w, h, nb, img.dtype.itemsize)
+        if len(out) <= bound // 2:
+            packed = rle0_encode(bytes(payload))
+            if len(packed) < len(payload) and len(packed) <= bound - len(out):
+                return header(w, h, nb, dt, mode, cband, side, quanta=quanta) + packed
+        return out
     if img.nbytes > len(out):
         return out
-    return header(w, h, nb, DTYPES[img.dtype], STORED, cband) + img.tobytes()
+    return header(w, h, nb, dt, STORED, cband, quanta=quanta) + img.tobytes()
 
 
 # ------------------------------------------------------------------ decode
 
 def parse_header(stream: bytes) -> dict:
     """The main header and chunks -> width, height, bands, dtype, mode,
-    cband, order, offset of the payload."""
+    cband, quanta, order, offset of the payload."""
     if stream[:4] != b"QB3\x80":
         raise ValueError("not a QB3 stream")
     w, h, nb, dt, mode = struct.unpack("<HHBBB", stream[4:11])
-    info = dict(w=w + 1, h=h + 1, nb=nb + 1, dtype=dt, mode=mode,
+    info = dict(w=w + 1, h=h + 1, nb=nb + 1, dtype=dt, mode=mode, quanta=1,
                 cband=list(range(nb + 1)), order=ZCURVE if mode in (0, 1, 2, 3) else HILBERT)
     pos = 11
     while stream[pos: pos + 2] != b"DT":
@@ -430,7 +580,7 @@ def parse_header(stream: bytes) -> dict:
         elif sig == b"SC":
             (info["order"],) = struct.unpack("<Q", body)
         elif sig == b"QV":
-            raise ValueError("quantized streams are not in the reference")
+            info["quanta"] = int.from_bytes(body, "little")
         if sig[0] & 0x20:  # a skippable chunk: its length counts its header
             pos += ln
         else:
@@ -574,19 +724,23 @@ def decode_groups(payload: bytes, nblocks: int, nb: int, tbits: int, mode: int) 
 
 
 def decode(stream: bytes) -> np.ndarray:
-    """A stream of FTL, BASE_H or CF_H (any sidecar is skipped) or a stored
-    one, u8 / u16, sides multiples of 4 -> the (H, W, C) raster."""
+    """A stream of FTL, BASE_H, CF_H, RLE_H or CF_RLE_H (any sidecar is
+    skipped), or a stored one, 8- or 16-bit, sides multiples of 4 -> the
+    (H, W, C) raster, multiplied back by its step where it has one."""
     i = parse_header(stream)
     h, w, nb = i["h"], i["w"], i["nb"]
-    dt = NP_DTYPES[i["dtype"]]
+    dt = np.dtype(NP_DTYPES[i["dtype"]])
     data = stream[i["offset"]:]
     if i["mode"] == STORED:
         return np.frombuffer(data, dt).reshape(h, w, nb).copy()
-    if i["mode"] not in (FTL, BASE_H, CF_H) or h % B or w % B:
-        raise ValueError("the reference decodes FTL, BASE_H and CF_H, sides multiples of 4")
-    tbits = 8 * np.dtype(dt).itemsize
+    mode = RLE_BASE.get(i["mode"], i["mode"])
+    if mode not in (FTL, BASE_H, CF_H) or h % B or w % B:
+        raise ValueError("the reference decodes the modes of MODES, sides multiples of 4")
+    if mode != i["mode"]:
+        data = rle0_decode(data, h * w * nb * dt.itemsize)
+    tbits = 8 * dt.itemsize
     mask = (1 << tbits) - 1
-    m = decode_groups(data, (h // B) * (w // B), nb, tbits, i["mode"])
+    m = decode_groups(data, (h // B) * (w // B), nb, tbits, mode)
     seq = np.cumsum(smags(m.transpose(1, 0, 2).reshape(nb, -1), tbits), axis=1) & mask
     vals = seq.reshape(nb, -1, B2).transpose(1, 0, 2)
     t = np.empty_like(vals)
@@ -595,4 +749,5 @@ def decode(stream: bytes) -> np.ndarray:
     cb = i["cband"]
     dep = [c for c in range(nb) if cb[c] != c]
     img[..., dep] = (img[..., dep] + img[..., [cb[c] for c in dep]]) & mask
-    return img.astype(dt)
+    img = img.astype(UNSIGNED[dt.itemsize]).view(dt)
+    return dequantize(img, i["quanta"]) if i["quanta"] >= 2 else img

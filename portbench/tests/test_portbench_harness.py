@@ -17,9 +17,11 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
-from portbench import faults, harness, registry
+from portbench import faults, harness, loops, registry
+from portbench.rasters import headline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PKG = os.path.join(ROOT, "portbench")
@@ -213,3 +215,84 @@ def test_profile_reduction():
     assert p["per_op"] == pytest.approx({"k1": 150e-6, "k2": 100e-6, "k3": 100e-6})
     assert p["gaps"] == pytest.approx({"arrival_wait": 350e-6, "other": 150e-6})
     assert p["busy_s"] == pytest.approx(300e-6) and p["wall_s"] == 0.001
+
+
+# a lossy configuration the benchmark has no cell of yet: an int16 scene at
+# the step 4 in CF_RLE_H, fed to the port's StripEncoder in rows
+SCENE_CONF = {"name": "scene-i16-q4", "dtype": "int16", "bands": 1, "mode": "CF_RLE_H",
+              "quanta": 4, "coreband": None, "index": None}
+
+
+def _scene(h: int = 32, w: int = 32, seed: int = 5) -> np.ndarray:
+    """A smooth int16 field with negative values and a sea at the type's
+    minimum over its left quarter."""
+    from portbench.tests.test_portbench_reference import signed_raster
+
+    return signed_raster("dem", np.int16, h, w, 1, seed)
+
+
+def test_reference_stream_follows_the_configuration():
+    """reference_stream is the reference's encode under the configuration's
+    mode, sidecar, core bands, step and rounding."""
+    from portbench.reference import qb3ref
+
+    conf = registry.cell("rgb8-ftl-ingest")["config"]
+    tile = headline.headline_image(32, 32, 3, 7)
+    assert loops.reference_stream(conf, tile) == qb3ref.encode(tile, qb3ref.FTL, index="ic")
+    img = _scene()
+    for away in (False, True):
+        lossy = dict(SCENE_CONF, away=away)
+        assert loops.reference_stream(lossy, img) == qb3ref.encode(
+            img, qb3ref.CF_RLE_H, quanta=4, away=away)
+    assert loops.reference_stream(SCENE_CONF, img) != loops.reference_stream(
+        dict(SCENE_CONF, quanta=1), img)
+
+
+def test_checks_of_a_lossy_configuration():
+    """streams_differ and arrays_differ on int16 rasters at the step 4:
+    the port's streams and decoded rasters pass, altered ones and the
+    raster itself (not multiplied back) do not."""
+    import qb3_tpu_torch as q
+
+    pool = np.stack([_scene(seed=s) for s in (1, 2, 3)])
+    streams = [q.encode(t, mode=7, quanta=4, device="cpu") for t in pool]
+    kept = list(enumerate(streams))
+    rng = np.random.default_rng
+    assert loops.streams_differ(kept, pool, SCENE_CONF, 3, rng(1)) == 0
+    bad = [(i, faults._alter_stream(s)) for i, s in kept]
+    assert loops.streams_differ(bad, pool, SCENE_CONF, 3, rng(1)) == 3
+    assert loops.streams_differ(kept, pool, dict(SCENE_CONF, away=True), 3, rng(1)) == 3
+    decoded = [(i, q.decode(s, device="cpu")[0]) for i, s in kept]
+    assert loops.arrays_differ(decoded, pool, SCENE_CONF) == 0
+    assert loops.arrays_differ(list(enumerate(pool)), pool, SCENE_CONF) == 3
+    assert loops.arrays_differ(list(enumerate(pool)), pool, dict(SCENE_CONF, quanta=1)) == 0
+
+
+@pytest.mark.parametrize("kind", faults.kinds("stream_scene") + (None,))
+def test_stream_scene_faults(kind):
+    """Each fault of a streaming entry, around the port's StripEncoder on
+    the CPU (32x32x1 int16, step 4, CF_RLE_H, pushed 8 rows at a time),
+    gives a stream other than the reference's; the entry unbroken gives
+    the reference's.  The wrapped class is built as the class is."""
+    import inspect
+    import types
+
+    from qb3_tpu_torch import strip
+    from qb3_tpu_torch.constants import DType
+
+    assert "half" not in faults.kinds("stream_scene")
+    img = _scene()
+    entry = types.SimpleNamespace(ENTRY="qb3_tpu_torch.strip:StripEncoder",
+                                  SHAPE="stream_scene")
+    cls = strip.StripEncoder
+    saved = faults.install(kind)({"config": SCENE_CONF}, entry) if kind else []
+    try:
+        assert inspect.signature(strip.StripEncoder) == inspect.signature(cls)
+        enc = strip.StripEncoder(32, 32, 1, DType.I16, mode=7, quanta=4, device="cpu")
+        for y in range(0, 32, 8):
+            enc.push(img[y: y + 8])
+        stream = enc.finish()
+    finally:
+        harness.restore(saved)
+    assert strip.StripEncoder is cls
+    assert (stream == loops.reference_stream(SCENE_CONF, img)) == (kind is None)
