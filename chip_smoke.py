@@ -17,7 +17,7 @@ at the headline and wide shapes and on the repository's Landsat sample (a
 StripDecoder) of a u8 4096x4096x3 FTL scene and a u16 4096x4096x1 BASE_H
 elevation raster in 256-row strips, stitched on the card by K6's stitch
 entry; the best
-modes (CF_H): the encode (phase A in plain PyTorch, then K1 at 27 or 43
+modes (CF_H): the encode (phase A in K10, then K1 at 27 or 43
 symbols a group) with the "ib" and "ic" sidecars and without, their
 decodes (K7 + K5, the "ic"-best chunk walk in plain PyTorch, the serial
 walk), a batch of 128 u8 512x512x3 tiles with "ib" and the u16 elevation
@@ -28,7 +28,9 @@ on P1-P7.  Phases, each printed on earlier lines:
   2. build the CUDA kernels from qb3_tpu_torch/csrc, one nvcc per source,
      and measure the launch floor (an empty kernel's device time);
   3. K9 (the fast phase A in one launch) at one u8 512x512x3 tile and 128
-     of them, its outputs compared field by field, then K1 (pack, on K9's
+     of them, its outputs compared field by field, K10 (the best phase A in
+     one launch) at a Landsat pass of 8 tiles, one u8 tile and the u64
+     1024x1024x1 raster the same way, then K1 (pack, on K9's
      outputs), K3 (window copy) and K2 (chunk walk) at the "ic" path's
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
@@ -171,6 +173,8 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
     "place_slabs": ("qb3_tpu_torch/csrc/place.cu", "qb3_tpu/ops/pack_pallas.py:388"),
     "phase_a_fast": ("qb3_tpu_torch/csrc/phase_a.cu",
                      "none: XLA ops (qb3_tpu/ops/encode.py encode_fast_blocks)"),
+    "phase_a_best": ("qb3_tpu_torch/csrc/phase_a_best.cu",
+                     "none: XLA ops (qb3_tpu/ops/encode_best.py encode_best_blocks)"),
     "probe_dim0_dot": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:24"),
     "probe_1d_dma": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:49"),
     "probe_flatten": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:62"),
@@ -513,6 +517,86 @@ def k9_phase(dev, card, img, tiles) -> dict:
             f"({need[0]} bytes, {need[1]} operations); the int64 carriers weigh {carriers} "
             f"bytes, {carriers / HBM_BYTES_PER_S * 1e3:.5f} ms ({card})")
         results.setdefault("phase_a_fast", (0, t["ms"], plain, need, None, t["busy_ms"], None))
+        del args
+    return results
+
+
+def k10_need(x, tbits: int, nsym: int) -> tuple:
+    """(bytes, operations) K10 needs for the tiles x: the raster read once;
+    the codes and lengths (CODE_BYTES a code, a byte a length), meta16 (2
+    bytes), cfv and pcf_in (the values' width), post_runbits (a byte) and
+    the three exit states written once; coding each value twice (the plain
+    and the divided group) and its index code, and the 8 uniques (CODE_OPS
+    each), matching each value against 8 uniques and ranking them (8 * 16 +
+    64), three headers (GROUP_OPS each)."""
+    *lead, h, w, nb = x.shape
+    ntiles = int(np.prod(lead, dtype=np.int64))
+    ngroups = ntiles * -(-h // 4) * -(-w // 4) * nb
+    meta = 2 + 2 * tbits // 8 + 1
+    return (x.size * tbits // 8 + ngroups * (nsym * (CODE_BYTES[tbits] + 1) + meta)
+            + 3 * ntiles * nb * tbits // 8,
+            ngroups * ((32 * wide(tbits) + 24) * CODE_OPS + 8 * 16 + 64 + 3 * GROUP_OPS))
+
+
+def landsat_pass():
+    """A pass of the Landsat batch (landsat-cfh-ingest: batch.BEST_GROUPS
+    groups, 8 tiles): the sample decoded, flipped and turned, and its core
+    bands."""
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import container
+    from qb3_tpu_torch.benchutil import LANDSAT_SAMPLE
+
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        sample = f.read()
+    land = qt.decode(sample, device="cpu")[0]
+    views = [land, land[::-1], land[:, ::-1], np.rot90(land)]
+    return np.ascontiguousarray(np.stack(views * 2)), tuple(container.parse_headers(sample).cband)
+
+
+def k10_phase(dev, card, img) -> dict:
+    """Phase 3: K10 (the best phase A in one launch) against its twin
+    (ops/encode_best.encode_best_blocks on the same card tensors) at a
+    Landsat pass (8 x 512x512x8 u16, the sample's core bands), one u8
+    512x512x3 tile and the u64 1024x1024x1 raster (Hilbert, a zero entry
+    state): every output equal, field by field, in shape, dtype and value;
+    its times, which must be its memset and kernel alone a call, the twin's
+    median and the bound."""
+    import torch
+
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.benchutil import median_ms, wide_image
+    from qb3_tpu_torch.constants import HILBERT
+    from qb3_tpu_torch.ops.encode_best import encode_best_blocks
+    from qb3_tpu_torch.ops.phase_a_cuda import phase_a_best
+
+    results = {}
+    fields = ("codes", "lens", "exit_prev", "exit_runbits", "exit_cf", "meta16", "cfv",
+              "post_runbits", "pcf_in")
+    land, land_cband = landsat_pass()
+    cases = (("landsat pass", land, land_cband), ("u8 single", img, (1, 1, 1)),
+             ("u64 1024x1024x1", wide_image("u64 1024x1024x1"), (0,)))
+    for label, x, cband in cases:
+        tb = 8 * x.itemsize
+        zero = torch.zeros(*x.shape[:-3], x.shape[-1], dtype=torch.int64, device=dev)
+        args = (api.to_carrier(x, dev), zero, zero, zero, HILBERT, cband, tb)
+        got, want = phase_a_best(*args), encode_best_blocks(*args)
+        check(len(got) == len(want) == len(fields), f"K10 {label}: {len(got)} outputs")
+        for name, g, w in zip(fields, got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"K10 {label} {name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+            check(torch.equal(g, w), f"K10 {label} {name}: the kernel disagrees with its twin")
+        need = k10_need(x, tb, got[0].shape[-1])
+        carriers = nbytes(args[0], *got)
+        del got, want
+        t = launch_times(lambda: phase_a_best(*args), "phase_a_best_kernel")
+        check_one_launch(f"K10 {label}", t, "phase_a_best_kernel")
+        plain = median_ms(lambda: encode_best_blocks(*args), 5)
+        bms, by = bound(need)
+        log(f"K10 phase_a_best {label} {tuple(x.shape)}: equal field by field; "
+            f"{pack_times_text(t)}; twin {plain:.4f} ms; bound {bms:.5f} ms by {by} "
+            f"({need[0]} bytes, {need[1]} operations); the int64 carriers weigh {carriers} "
+            f"bytes, {carriers / HBM_BYTES_PER_S * 1e3:.5f} ms ({card})")
+        results.setdefault("phase_a_best", (0, t["ms"], plain, need, None, t["busy_ms"], None))
         del args
     return results
 
@@ -1283,7 +1367,7 @@ def probe_main_path(kernels) -> dict:
 
 
 class no_twins:
-    """Within the block, the twins of K1-K9 raise if called: the path
+    """Within the block, the twins of K1-K10 raise if called: the path
     inside runs on the kernels alone."""
 
     def __enter__(self):
@@ -1298,7 +1382,8 @@ class no_twins:
             (gather_cuda, "gather_slabs_plain"), (pack_cuda, "pack_groups"),
             (pack_cuda, "extract_windows_plain"), (chunkwalk_cuda, "chunkwalk8_plain"),
             (fusedwin_cuda, "wavefront_fused_plain"), (encode_cuda, "encode_pack_image_plain"),
-            (place_cuda, "place_slabs_plain"), (phase_a_cuda, "encode_fast_blocks"))]
+            (place_cuda, "place_slabs_plain"), (phase_a_cuda, "encode_fast_blocks"),
+            (phase_a_cuda, "encode_best_blocks"))]
         for m, n, _ in self.saved:
             setattr(m, n, refuse)
 
@@ -1799,9 +1884,10 @@ def best_round_trips(dev, kernels, label, x) -> dict:
         check(info.mode == Mode.CF_H and d.decode_path == want,
               f"best {label} {index}: mode {info.mode}, decode path {d.decode_path}")
         paths.append(f"{index or 'no sidecar'}: {d.decode_path}, ratio {len(s) / x.nbytes:.4f}")
-    counts = {k: kernels[k].launches for k in ("pack_groups_chunked", "gather_slabs", k5)}
+    counts = {k: kernels[k].launches
+              for k in ("phase_a_best", "pack_groups_chunked", "gather_slabs", k5)}
     log(f"lossless best {label} CF_H ({'; '.join(paths)}); launch counts {counts}")
-    check(counts["pack_groups_chunked"] == 3 and all(counts.values()),
+    check(counts["pack_groups_chunked"] == counts["phase_a_best"] == 3 and all(counts.values()),
           f"best {label}: a kernel of the path was not launched ({counts})")
     return counts
 
@@ -1824,9 +1910,10 @@ def best_phase(dev, card, kernels, imgs: dict, tiles, elevation) -> dict:
     from qb3_tpu_torch.constants import HILBERT, Mode
     from qb3_tpu_torch.ops import bitpack
     from qb3_tpu_torch.ops.decode import reconstruct
+    from qb3_tpu_torch import batch
     from qb3_tpu_torch.ops.decode_chunked import decode_chunked_best, parse_ic_best
-    from qb3_tpu_torch.ops.encode_best import encode_best_blocks
     from qb3_tpu_torch.ops.pack_cuda import pack_groups_chunked
+    from qb3_tpu_torch.ops.phase_a_cuda import phase_a_best
 
     counts = {label: best_round_trips(dev, kernels, label, x) for label, x in imgs.items()}
     for label, x in imgs.items():
@@ -1837,10 +1924,10 @@ def best_phase(dev, card, kernels, imgs: dict, tiles, elevation) -> dict:
         zero = torch.zeros(nb, dtype=torch.int64, device=dev)
         xd = api.to_carrier(x, dev)
         enc = (xd, zero, zero, zero, HILBERT, cband, tb)
-        codes, lens = encode_best_blocks(*enc)[:2]
+        codes, lens = phase_a_best(*enc)[:2]
         bound = bitpack.group_bits_bound(tb, best=True)
         t_enc = sustained(lambda: api.best_encode(*enc, n_words), 10)
-        t_pa = sustained(lambda: encode_best_blocks(*enc), 10)
+        t_pa = sustained(lambda: phase_a_best(*enc), 10)
         t_k1 = sustained(lambda: pack_groups_chunked(codes, lens, n_words, bound), 20)
         log(f"device encode best {label} CF_H: {mb / t_enc:.2f} MB/s ({t_enc * 1e3:.4f} ms) = "
             f"phase A {t_pa * 1e3:.4f} ms + K1 {t_k1 * 1e3:.4f} ms ({card})")
@@ -1887,14 +1974,15 @@ def best_phase(dev, card, kernels, imgs: dict, tiles, elevation) -> dict:
     reset(kernels)
     peak = {"encode": peak_bytes(lambda: qt.encode_tiles(tiles, mode=Mode.CF_H, index=True,
                                                          device=dev))}
-    enc_counts = {k: kernels[k].launches for k in ("pack_groups_chunked",)}
+    enc_counts = {k: kernels[k].launches for k in ("pack_groups_chunked", "phase_a_best")}
+    passes = -(-len(tiles) // max(1, batch.BEST_GROUPS // (128 * 128 * 3)))
     streams = qt.encode_tiles(tiles, mode=Mode.CF_H, index=True, device=dev)
     reset(kernels)
     out = {}
     peak["decode"] = peak_bytes(lambda: out.update(t=qt.decode_tiles(streams, device=dev)))
     dec_counts = {k: kernels[k].launches for k in ("gather_slabs", "wavefront8")}
     log(f"launch counts of the best batch{BATCH}: encode {enc_counts}, decode {dec_counts}")
-    check(enc_counts == {"pack_groups_chunked": 1}
+    check(enc_counts == {"pack_groups_chunked": 1, "phase_a_best": passes}
           and dec_counts == {"gather_slabs": 1, "wavefront8": 1},
           "best batch: the launches of the encode and the decode")
     check(np.array_equal(out["t"], tiles), "best batch round trip")
@@ -1918,14 +2006,14 @@ def best_phase(dev, card, kernels, imgs: dict, tiles, elevation) -> dict:
     keep = {}
     s = strip_encode(x, Mode.CF_H, True, dev, keep)
     nparts = len(keep.pop("parts"))
-    enc = {k: kernels[k].launches
-           for k in ("place_slabs", "place_parts", "pack_groups_chunked", "encode_pack_image")}
+    enc = {k: kernels[k].launches for k in ("place_slabs", "place_parts", "pack_groups_chunked",
+                                            "encode_pack_image", "phase_a_best")}
     reset(kernels)
     rows, path = strip_decode(s, dev)
     dec = {k: kernels[k].launches for k in ("gather_slabs", "wavefront8", "wavefront_wide")}
     log(f"launch counts of the best strips u16 4096x4096x1 CF_H ib: encode {enc}, decode {dec}")
     check(enc == {"place_slabs": 0, "place_parts": 1, "pack_groups_chunked": nparts,
-                  "encode_pack_image": 0},
+                  "encode_pack_image": 0, "phase_a_best": nparts},
           "best strips: the encode's launches")
     check(dec == {"gather_slabs": nstrips, "wavefront8": 0, "wavefront_wide": nstrips},
           "best strips: the decode's launches")
@@ -1952,6 +2040,8 @@ def best_phase(dev, card, kernels, imgs: dict, tiles, elevation) -> dict:
                 + dec.get(k, 0) for k in ("gather_slabs", "wavefront8", "wavefront_wide")}
     launches["place_slabs"] = enc["place_slabs"]
     launches["place_parts"] = enc["place_parts"]
+    launches["phase_a_best"] = (sum(c["phase_a_best"] for c in counts.values())
+                                + enc_counts["phase_a_best"] + enc["phase_a_best"])
     return k1, launches
 
 
@@ -2665,7 +2755,7 @@ def main() -> int:
     from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused
     from qb3_tpu_torch.ops.gather_cuda import gather_slabs
     from qb3_tpu_torch.ops.pack_cuda import extract_windows, pack_groups_chunked
-    from qb3_tpu_torch.ops.phase_a_cuda import phase_a_fast
+    from qb3_tpu_torch.ops.phase_a_cuda import phase_a_best, phase_a_fast
     from qb3_tpu_torch.ops.place_cuda import place_parts, place_slabs
     from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
 
@@ -2694,6 +2784,7 @@ def main() -> int:
 
     log("# phase 3: kernels against their twins")
     kres = k9_phase(dev, card, img, tiles)
+    kres.update(k10_phase(dev, card, img))
     kres.update(kernel_phase(dev, card, img, tiles, u16))
     cases = ix_cases()
     ix_res, ix_streams = ix_kernel_phase(dev, card, cases)
@@ -2733,6 +2824,7 @@ def main() -> int:
                "wavefront_wide": wavefront_wide, "gather_slabs": gather_slabs,
                "encode_pack_image": encode_pack_image, "place_slabs": place_slabs,
                "place_parts": place_parts, "phase_a_fast": phase_a_fast,
+               "phase_a_best": phase_a_best,
                **{f"probe_{n}": k for n, (k, _) in probes.KERNELS.items()}}
     landsat_pin(dev, card, kernels)
 
@@ -2936,7 +3028,7 @@ def main() -> int:
     best_k1, best_launches = best_phase(dev, card, kernels, best_imgs, tiles,
                                         scases["u16 4096x4096x1 BASE_H"][0])
     for k, n in best_launches.items():
-        launches[k] += n
+        launches[k] = launches.get(k, 0) + n
     landsat_split(dev, card)
     launches.update(probe_main_path(kernels))
 

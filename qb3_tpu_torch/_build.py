@@ -48,6 +48,8 @@ SIGNATURES = {
     "qb3_probe_lane_concat": [_P, _I32, _I32, _I32, _P, _P],
     "qb3_phase_a_fast": [_P, _P, _P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _U64, _I32, _P,
                          _P, _P, _P, _P, _P],
+    "qb3_phase_a_best": [_P, _P, _P, _I32, _P, _P, _I64, _I32, _I32, _I32, _I32, _U64, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
     "qb3_empty": [_P],
 }
 

@@ -7,8 +7,9 @@
 
     info, img = decode(stream)        # full decode
 
-Phase A (K9, ops/phase_a_cuda.py; on the CPU its twin in ops/encode.py)
-and the pack (K1) run on the given device; this module is the host-side
+Phase A (K9, and K10 in the best modes, ops/phase_a_cuda.py; on the CPU
+their twins in ops/encode.py and ops/encode_best.py) and the pack (K1) run
+on the given device; this module is the host-side
 orchestration: validation, quantization, small image repacking, container
 framing, the RLE0 post-pass and the fallbacks (qb3_encode,
 QB3encode.cpp:488-574).  u16/u32/u64 images whose sides are
@@ -17,8 +18,8 @@ multiples of 4 take the image-layout phase A (ops/encode_image.py) and K8
 
 Every mode is covered: the encode of FTL, BASE_H and BASE_Z with no
 sidecar, the self-contained "ic" sidecar or the "ix" sidecar (per-group bit
-lengths), and of the best modes CF and CF_H (phase A in ops/encode_best.py,
-then K1) with no sidecar, the "ib" sidecar (per-group lengths and decode
+lengths), and of the best modes CF and CF_H (phase A in K10, then K1)
+with no sidecar, the "ib" sidecar (per-group lengths and decode
 metadata) or the best modes' "ic" sidecar, each with its RLE form; the
 Decoder decodes stored, "ic" and "ix" streams, best-mode streams with the
 "ib" sidecar (K7 and K5) or their "ic" sidecar (the chunk walk of
@@ -58,12 +59,11 @@ from .ops.decode import (_NREG_IX, K5_KIND, decode_groups, decode_indexed_narrow
 from .ops.decode_chunked import (IC_DEFAULT_K, chunk_spans, chunk_spans_best,
                                  decode_chunked_auto, decode_chunked_best, pack_ic,
                                  pack_ic_best, parse_ic, parse_ic_best)
-from .ops.encode_best import encode_best_blocks
 from .ops.encode_cuda import encode_pack_image, image_pack_args
 from .ops.encode_image import phase_a_image
 from .ops.fusedwin_cuda import ix_window_R
 from .ops.gather_cuda import gather_span
-from .ops.phase_a_cuda import phase_a_fast
+from .ops.phase_a_cuda import phase_a_best, phase_a_fast
 
 NP_FROM_DT = {
     DType.U8: np.uint8, DType.I8: np.int8, DType.U16: np.uint16, DType.I16: np.int16,
@@ -237,16 +237,15 @@ def fast_encode(img, entry_prev, entry_runbits, order: int, cband: tuple,
 
 def best_encode(img, entry_prev, entry_runbits, entry_cf, order: int, cband: tuple,
                 tbits: int, n_words: int):
-    """Device-resident best encode (CF / CF_H): phase A (encode_best_blocks),
-    then the K1 pack at the best modes' symbol counts (qb3_tpu's
-    _best_kernel).
+    """Device-resident best encode (CF / CF_H): phase A (K10, or its twin
+    ops/encode_best.encode_best_blocks on the CPU), then the K1 pack at the
+    best modes' symbol counts (qb3_tpu's _best_kernel).
 
     img (..., H, W, C) int64 carrier; returns (words (..., n_words) int32,
     total bits, exit_prev, exit_runbits, exit_cf, glen, meta16, cfv,
     post_runbits, pcf_in), the last four as encode_best_blocks gives them."""
     (codes, lens, exit_prev, exit_runbits, exit_cf, meta16, cfv, post_run,
-     pcf_in) = encode_best_blocks(img, entry_prev, entry_runbits, entry_cf, order, cband,
-                                  tbits)
+     pcf_in) = phase_a_best(img, entry_prev, entry_runbits, entry_cf, order, cband, tbits)
     words, total, glen = pack_groups_auto(codes, lens, n_words,
                                           group_bits_bound(tbits, best=True))
     return (words, total, exit_prev, exit_runbits, exit_cf, glen, meta16, cfv, post_run,

@@ -3,8 +3,8 @@
 PyTorch counterpart of qb3_tpu/batch.py.  One K1 launch packs the whole
 batch, after one pass of phase A (FTL / BASE) or one pass of the best
 modes' phase A for each group of tiles (BEST_GROUPS groups at most a pass:
-its index trial's intermediates grow with the batch); decode is one K3 + K2
-walk ("ic"), one K4 walk ("ix") or one K7 + K5 pass ("ib", best modes) over
+the twin's index trial, on the CPU, grows with the batch); decode is one K3
++ K2 walk ("ic"), one K4 walk ("ix") or one K7 + K5 pass ("ib", best modes) over
 the flat tile layout, then one reconstruct.  Each tile is an independent
 QB3 stream (fresh band state), identical to encoding it alone.
 
@@ -33,10 +33,10 @@ from .errors import QB3ShapeError
 from .ops.bitpack import group_bits_bound, pack_groups_auto, words_to_bytes
 from .ops.decode import decode_groups, decode_indexed_narrow, payload_words, reconstruct_batch
 from .ops.decode_chunked import IC_DEFAULT_K, decode_chunked_auto, pack_ic, parse_ic
-from .ops.encode_best import encode_best_blocks
+from .ops.phase_a_cuda import phase_a_best
 
 # groups (blocks x bands) the best modes' phase A takes in one pass: about
-# 21 u8 512x512x3 tiles, ~6 GiB of the index trial's intermediates
+# 21 u8 512x512x3 tiles; on the CPU, ~6 GiB of the twin's index trial
 BEST_GROUPS = 1 << 20
 
 
@@ -53,8 +53,9 @@ def _flat_tile_layout(wlists):
 
 def best_encode_tiles(uns: np.ndarray, order: int, cband: tuple, n_words: int, device):
     """The best modes' batch encode (qb3_tpu's _batch_best_kernel): phase A
-    for each group of whole tiles of at most BEST_GROUPS groups (one tile
-    when a tile has more), into one (N, ngroups, S) symbol buffer, then one
+    (K10, or its twin on the CPU) for each group of whole tiles of at most
+    BEST_GROUPS groups (one tile when a tile has more), into one (N,
+    ngroups, S) symbol buffer, then one
     K1 launch -> (words, totals, glen, meta16, cfv).  A tile's symbols are
     the same whatever group it is in.  Spans (profiling), on the device's
     current stream: batch.upload and encode.phase_a a pass, encode.pack."""
@@ -68,8 +69,8 @@ def best_encode_tiles(uns: np.ndarray, order: int, cband: tuple, n_words: int, d
             x = to_carrier(uns[t0:t0 + per], device)
         with profiling.span("encode.phase_a", k, device):
             zero = torch.zeros(k, nb, dtype=torch.int64, device=device)
-            c, ln, _, _, _, m16, cf, _, _ = encode_best_blocks(x, zero, zero, zero, order,
-                                                               cband, tbits)
+            c, ln, _, _, _, m16, cf, _, _ = phase_a_best(x, zero, zero, zero, order, cband,
+                                                         tbits)
             if codes is None:
                 codes = c.new_empty((n, *c.shape[1:]))
                 lens = ln.new_empty((n, *ln.shape[1:]))

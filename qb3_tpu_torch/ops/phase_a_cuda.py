@@ -1,12 +1,15 @@
-"""Wrapper of the CUDA kernel K9 (the fast encoder's phase A in one pass),
-with its plain PyTorch twin and launch counter.
+"""Wrappers of the CUDA kernels K9 (the fast encoder's phase A in one pass)
+and K10 (the best modes' phase A in one pass), with their plain PyTorch
+twins and launch counters.
 
-K9 replaces no TPU kernel: qb3_tpu's fast phase A is XLA ops.  Its twin is
+Neither replaces a TPU kernel: qb3_tpu's phase A is XLA ops.  K9's twin is
 ops/encode.encode_fast_blocks, which the best phase A and the sharded paths
-take apart and which this module leaves as it is.  The wrapper takes the
-twin for a CPU tensor and launches its kernel (csrc/phase_a.cu) for a CUDA
-tensor; there is no fallback from one to the other.  Its ``launches``
-attribute counts its kernel launches.
+take apart; K10's is ops/encode_best.encode_best_blocks, which the sharded
+best encode keeps for its exchange hooks.  This module leaves both as they
+are.  A wrapper takes its twin for a CPU tensor and launches its kernel
+(csrc/phase_a.cu, csrc/phase_a_best.cu) for a CUDA tensor; there is no
+fallback from one to the other.  Each wrapper's ``launches`` attribute
+counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -19,18 +22,16 @@ from .. import _build
 from ..constants import B
 from .bitutils import table
 from .encode import encode_fast_blocks
+from .encode_best import encode_best_blocks
 from .pack_cuda import _strides, on_cpu, require, stream_ptr
 
 _K9 = _build.Kernel("qb3_phase_a_fast")
-MAX_BANDS = 256  # bands the kernel takes (csrc/phase_a.cu kMaxBands)
+_K10 = _build.Kernel("qb3_phase_a_best")
+MAX_BANDS = 256  # bands the kernels take (csrc/phase_a.cu, phase_a_best.cu kMaxBands)
 
 
-def phase_a_args(img, entry_prev, entry_runbits, order: int, cband, skipstep: bool,
-                 tbits: int, with_rungs: bool):
-    """Check K9's inputs and allocate its outputs -> (the C entry point's
-    arguments but the stream, and encode_fast_blocks' outputs: codes, lens,
-    exit_prev, exit_runbits, and rung where with_rungs).  The codes and
-    lengths share one buffer, the rungs and the exit state another."""
+def _checked(img, entry_prev, entry_runbits, cband, tbits: int):
+    """Check the inputs both kernels take -> (lead, H, W, C)."""
     if tbits not in (8, 16, 32, 64):
         raise ValueError(f"tbits {tbits}: the kernel takes 8, 16, 32 or 64")
     require(img, torch.int64, "img")
@@ -50,13 +51,30 @@ def phase_a_args(img, entry_prev, entry_runbits, order: int, cband, skipstep: bo
     if tuple(entry_prev.shape) != state or tuple(entry_runbits.shape) != state:
         raise ValueError(f"entry state {tuple(entry_prev.shape)}, "
                          f"{tuple(entry_runbits.shape)}: expected {state}")
-    ntiles = math.prod(lead)
-    nblocks = -(-h // B) * -(-w // B)
-    ngroups, nsym = nblocks * nb, 33 if tbits == 64 else 17
-    n = ntiles * ngroups * nsym
+    return lead, h, w, nb
+
+
+def _symbols(lead, ngroups: int, nsym: int, dev):
+    """codes (*lead, ngroups, nsym) int64 and lens int32, in one buffer."""
+    n = math.prod(lead) * ngroups * nsym
     sym = torch.empty(n + (n + 1) // 2, dtype=torch.int64, device=dev)
     codes = sym.as_strided((*lead, ngroups, nsym), _strides((*lead, ngroups, nsym)), 0)
-    lens = sym.view(torch.int32).as_strided(codes.shape, codes.stride(), 2 * n)
+    return codes, sym.view(torch.int32).as_strided(codes.shape, codes.stride(), 2 * n)
+
+
+def phase_a_args(img, entry_prev, entry_runbits, order: int, cband, skipstep: bool,
+                 tbits: int, with_rungs: bool):
+    """Check K9's inputs and allocate its outputs -> (the C entry point's
+    arguments but the stream, and encode_fast_blocks' outputs: codes, lens,
+    exit_prev, exit_runbits, and rung where with_rungs).  The codes and
+    lengths share one buffer, the rungs and the exit state another."""
+    lead, h, w, nb = _checked(img, entry_prev, entry_runbits, cband, tbits)
+    dev = img.device
+    state = (*lead, nb)
+    ntiles = math.prod(lead)
+    nblocks = -(-h // B) * -(-w // B)
+    ngroups = nblocks * nb
+    codes, lens = _symbols(lead, ngroups, 33 if tbits == 64 else 17, dev)
     small = torch.empty(ntiles * (ngroups * with_rungs + 2 * nb), dtype=torch.int64, device=dev)
     exit_prev = small.as_strided(state, _strides(state), 0)
     exit_run = small.as_strided(state, _strides(state), ntiles * nb)
@@ -97,3 +115,63 @@ def phase_a_fast(img, entry_prev, entry_runbits, order: int, cband: tuple[int, .
 
 
 phase_a_fast.launches = 0
+
+
+def phase_a_best_args(img, entry_prev, entry_runbits, entry_cf, order: int, cband, tbits: int):
+    """Check K10's inputs and allocate its outputs -> (the C entry point's
+    arguments but the stream, and encode_best_blocks' nine outputs: codes,
+    lens, exit_prev, exit_runbits, exit_cf, meta16, cfv, post_runbits,
+    pcf_in).  The codes and lengths share one buffer, the other outputs
+    another, and the look-back's ticket, state and CF values a third, sized
+    for a CTA a raster block (the kernel takes at least one a CTA and zeroes
+    what its CTAs use)."""
+    lead, h, w, nb = _checked(img, entry_prev, entry_runbits, cband, tbits)
+    dev = img.device
+    state = (*lead, nb)
+    require(entry_cf, torch.int64, "entry_cf", len(state), dev)
+    if tuple(entry_cf.shape) != state:
+        raise ValueError(f"entry_cf {tuple(entry_cf.shape)}: expected {state}")
+    ntiles = math.prod(lead)
+    nblocks = -(-h // B) * -(-w // B)
+    ngroups = nblocks * nb
+    codes, lens = _symbols(lead, ngroups, 43 if tbits == 64 else 27, dev)
+    n = ntiles * ngroups
+    grp = torch.empty(3 * n + 3 * ntiles * nb + (n + 1) // 2, dtype=torch.int64, device=dev)
+    per_group, per_block = (*lead, ngroups), (*lead, nblocks, nb)
+    cfv = grp.as_strided(per_group, _strides(per_group), 0)
+    post_run = grp.as_strided(per_block, _strides(per_block), n)
+    pcf_in = grp.as_strided(per_block, _strides(per_block), 2 * n)
+    exits = [grp.as_strided(state, _strides(state), 3 * n + k * ntiles * nb) for k in range(3)]
+    meta16 = grp.view(torch.int32).as_strided(per_group, _strides(per_group),
+                                              2 * (3 * n + 3 * ntiles * nb))
+    nscratch = 1 + 2 * n
+    scratch = torch.empty(nscratch, dtype=torch.int64, device=dev)
+    args = (img.data_ptr(), entry_prev.data_ptr(), entry_runbits.data_ptr(),
+            int(entry_runbits.dtype == torch.int64), entry_cf.data_ptr(),
+            table(tuple(int(c) for c in cband), dev).data_ptr(), ntiles, h, w, nb, tbits, order,
+            codes.data_ptr(), lens.data_ptr(), meta16.data_ptr(), cfv.data_ptr(),
+            post_run.data_ptr(), pcf_in.data_ptr(), *(e.data_ptr() for e in exits),
+            scratch.data_ptr(), nscratch)
+    return args, (codes, lens, *exits, meta16, cfv, post_run, pcf_in)
+
+
+def phase_a_best(img, entry_prev, entry_runbits, entry_cf, order: int, cband: tuple[int, ...],
+                 tbits: int):
+    """K10: the best modes' phase A (CF / CF_H) in one launch, returning
+    what encode_best_blocks returns, with the same shapes, dtypes and values.
+
+    img (..., H, W, C) int64 carrier of tbits-wide values, H and W at least
+    4, C at most 256; entry_prev and entry_cf (..., C) int64, entry_runbits
+    (..., C) int32 or int64, contiguous.  Returns (codes int64, lens int32,
+    exit_prev, exit_runbits, exit_cf, meta16 int32, cfv, post_runbits,
+    pcf_in), codes / lens (..., ngroups, nsym) in stream order."""
+    if on_cpu(img):
+        return encode_best_blocks(img, entry_prev, entry_runbits, entry_cf, order, cband, tbits)
+    args, out = phase_a_best_args(img, entry_prev, entry_runbits, entry_cf, order, cband, tbits)
+    if out[0].numel():
+        _K10(*args, stream_ptr(img.device))
+        phase_a_best.launches += 1
+    return out
+
+
+phase_a_best.launches = 0

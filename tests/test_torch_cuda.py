@@ -4,7 +4,9 @@ and IDX groups and the edge inputs of tests/k5_edges.py included), K6
 (slab placement, and its stitch entry on the parts of a stitch), K7
 (window gather), K8 (fused image-layout VLC + pack), K9 (the fast phase A,
 also on the edge inputs of tests/pack_edges.py, and on the batch, pipelined
-and one-image encodes with its twin refused)
+and one-image encodes with its twin refused), K10 (the best phase A, also
+on the edge inputs of tests/best_edges.py and the Landsat sample, and on
+the Landsat batch and the one-image best encodes with its twin refused)
 and P1-P7 (the Mosaic probes) of
 qb3_tpu_torch against their plain PyTorch twins (K1 also at the best modes'
 symbol counts), and the public decode (best-mode streams included), the
@@ -49,14 +51,15 @@ from qb3_tpu_torch.ops.fusedwin_cuda import wavefront_fused, wavefront_fused_pla
 from qb3_tpu_torch.ops.gather_cuda import (GATHER_MAX_R, gather_slabs, gather_slabs_plain,
                                            gather_span)
 from qb3_tpu_torch.ops import phase_a_cuda
-from qb3_tpu_torch.ops.phase_a_cuda import phase_a_fast
+from qb3_tpu_torch.ops.encode_best import encode_best_blocks
+from qb3_tpu_torch.ops.phase_a_cuda import phase_a_best, phase_a_fast
 from qb3_tpu_torch.ops.place_cuda import place_parts, place_slabs, place_slabs_plain
 from qb3_tpu_torch.stitch import stitch_words, stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 from qb3_tpu_torch.parallel import sharded
 
-from . import k5_edges, p1_cases, pack_edges, walk_edges
+from . import best_edges, k5_edges, p1_cases, pack_edges, walk_edges
 from .stitch_cases import STITCH_CASES, stitch_parts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -614,6 +617,174 @@ def test_one_image_encodes_go_through_k9(cuda, monkeypatch):
     assert phase_a_fast.launches == before + 2
     assert got == want
     assert hashlib.sha256(got[0]).hexdigest() == benchutil.HEADLINE_SHA256
+
+# ------------------------------------------------ K10 (ops/phase_a_cuda.py)
+
+# name -> (dtype, lead + (H, W, C), curve, cband, entry state): every width,
+# 1, 3, 5, 8 and 16 bands with default and other core bands, aligned and
+# unaligned sides, both curves (CF_H's Hilbert, CF's Z), zero and non-zero
+# entry state, no leading axis, (1,), (3,) and a Landsat pass of 8
+K10_CARD = {
+    "u8 24x32x5 kinds": (np.uint8, (24, 32, 5), HILBERT, (1, 1, 3, 3, 4), "zero"),
+    "u8 513x517x16": (np.uint8, (513, 517, 16), HILBERT, tuple(range(16)), "random"),
+    "u8 5x7x3 (3,) z": (np.uint8, (3, 5, 7, 3), ZCURVE, (1, 1, 1), "random"),
+    "u16 24x32x5 kinds z": (np.uint16, (24, 32, 5), ZCURVE, (0, 0, 2, 2, 4), "random"),
+    "u16 21x18x1 (1,)": (np.uint16, (1, 21, 18, 1), HILBERT, (0,), "random"),
+    "u16 512x512x8 x8": (np.uint16, (8, 512, 512, 8), HILBERT, (0, 1, 2, 3, 4, 5, 6, 7), "zero"),
+    "u32 24x32x5 kinds": (np.uint32, (24, 32, 5), HILBERT, (1, 1, 3, 3, 4), "random"),
+    "u32 13x9x3 z": (np.uint32, (13, 9, 3), ZCURVE, (2, 2, 2), "random"),
+    "u64 24x32x5 kinds z": (np.uint64, (24, 32, 5), ZCURVE, (1, 1, 3, 3, 4), "random"),
+    "u64 1024x1024x1": (np.uint64, (1024, 1024, 1), HILBERT, (0,), "zero"),
+    "u64 9x13x8 (1,)": (np.uint64, (1, 9, 13, 8), HILBERT, (1, 1, 1, 1, 1, 1, 1, 1), "random"),
+}
+
+
+def _k10_state(lead, nb, tbits, kind, seed, dev):
+    """entry_prev, entry_runbits (int32) and entry_cf of shape lead + (nb,)
+    on dev: zero, or random values, rungs and biased CFs."""
+    prev, runbits = _k9_state(lead, nb, tbits, kind, seed, dev)
+    if kind == "zero":
+        return prev, runbits, prev
+    rng = np.random.default_rng(seed + 1)
+    cf = rng.integers(0, 1 << min(tbits - 2, 20), (*lead, nb)).astype(np.int64)
+    return prev, runbits, torch.from_numpy(cf).to(dev)
+
+
+def _k10_raster(dtype, shape, seed):
+    """kinds_scene rasters where the name says so (every group kind), else
+    the headline grain with whole groups at the type's top and common factors
+    in a quarter."""
+    *lead, h, w, nb = shape
+    n = int(np.prod(lead))
+    if h == 24 and w == 32:
+        return best_edges.kinds_scene(h, w, nb, dtype, seed)
+    if dtype == np.uint64 and h >= 512:
+        img = _full_range_u64((n, h, w, nb), seed=seed) >> np.uint64(20)
+    else:
+        img = np.stack([headline_image(h, w, nb, seed=seed + i, dtype=dtype) for i in range(n)])
+    img[:, ::8, ::8] = np.iinfo(dtype).max
+    img[:, : h // 2, : w // 2] = img[:, : h // 2, : w // 2] // 6 * 6
+    return img.reshape(*lead, h, w, nb)
+
+
+def _k10_equal(img, prev, runbits, cf, order, cband, tbits):
+    """K10 (one launch, its memset and kernel alone on the device) against
+    its twin on the same card tensors, all nine outputs, tolerance zero."""
+    before = phase_a_best.launches
+    got = phase_a_best(img, prev, runbits, cf, order, cband, tbits)
+    torch.cuda.synchronize()
+    assert phase_a_best.launches == before + 1
+    want = encode_best_blocks(img, prev, runbits, cf, order, cband, tbits)
+    assert len(got) == len(want) == 9
+    for name, g, w in zip(("codes", "lens", "exit_prev", "exit_runbits", "exit_cf", "meta16",
+                           "cfv", "post_runbits", "pcf_in"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_cuda, name
+        assert torch.equal(g, w), name
+    ops = device_profile(lambda: phase_a_best(img, prev, runbits, cf, order, cband, tbits),
+                         3)["per_op"]
+    assert any("phase_a_best_kernel" in op for op in ops), ops
+    assert all("phase_a_best_kernel" in op or "memset" in op.lower() for op in ops), ops
+
+
+@pytest.mark.parametrize("name", list(K10_CARD))
+def test_k10_matches_twin(cuda, name):
+    dtype, shape, order, cband, state = K10_CARD[name]
+    *lead, h, w, nb = shape
+    tbits = 8 * np.dtype(dtype).itemsize
+    x = to_carrier(_k10_raster(dtype, shape, 910), cuda)
+    _k10_equal(x, *_k10_state(lead, nb, tbits, state, 911, cuda), order, cband, tbits)
+
+
+@pytest.mark.parametrize("name", list(best_edges.K10_CASES))
+def test_k10_edges_match_twin(cuda, name):
+    """K10 on the edge inputs of tests/best_edges.py (all values equal, tied
+    counts, 9 uniques, a CF of 2 and more at every rung, CFs at and past
+    2^16, the u64 magnitude 2^63, rung 63), alone and as 2 tiles, from a
+    zero and a random entry state, against its twin."""
+    img, order, cband = best_edges.k10_case(name)
+    nb, tbits = img.shape[-1], 8 * img.itemsize
+    for x in (to_carrier(img, cuda), to_carrier(np.stack([img, img[::-1]]), cuda)):
+        lead = tuple(x.shape[:-3])
+        for state in ("zero", "random"):
+            _k10_equal(x, *_k10_state(lead, nb, tbits, state, 912, cuda), order, cband, tbits)
+
+
+def test_k10_landsat_sample_matches_twin(cuda):
+    """The Landsat sample's tile (CF_H, its own core bands) through K10 and
+    its twin; its re-encode on the card gives the pinned stream."""
+    import hashlib
+
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        sample = f.read()
+    info = container.parse_headers(sample)
+    raster = qt.decode(sample, device="cpu")[0]
+    z = torch.zeros(info.nbands, dtype=torch.int64, device=cuda)
+    _k10_equal(to_carrier(raster, cuda), z, z, z, HILBERT, tuple(info.cband), 16)
+    stream = qt.encode(raster, mode=info.mode, coreband=info.cband, device=cuda)
+    assert hashlib.sha256(stream).hexdigest() == benchutil.LANDSAT_ENCODE_SHA256
+
+
+def _refuse_k10_twin(monkeypatch):
+    def refuse(*_, **__):
+        raise AssertionError("K10's twin ran on the card's path")
+
+    monkeypatch.setattr(phase_a_cuda, "encode_best_blocks", refuse)
+
+
+def test_landsat_batch_goes_through_k10(cuda, monkeypatch):
+    """batch.encode_tiles in CF_H on 24 Landsat-shaped tiles (the sample,
+    flipped and turned), K10's twin refused: one K10 launch a pass of
+    batch.BEST_GROUPS groups (3 passes of 8), the twin's streams (the twin
+    on the card), the sample's to its pin."""
+    import hashlib
+
+    from qb3_tpu_torch import batch
+
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        sample = f.read()
+    info = container.parse_headers(sample)
+    land = qt.decode(sample, device="cpu")[0]
+    views = [land, land[::-1], land[:, ::-1], np.rot90(land), np.rot90(land, 2), np.rot90(land, 3)]
+    tiles = np.ascontiguousarray(np.stack([views[i % 6] for i in range(24)]))
+    passes = -(-24 // (batch.BEST_GROUPS // (128 * 128 * 8)))
+    with monkeypatch.context() as m:
+        m.setattr(batch, "phase_a_best", encode_best_blocks)
+        want = qt.encode_tiles(tiles, mode=Mode.CF_H, coreband=info.cband, device=cuda)
+    _refuse_k10_twin(monkeypatch)
+    before = phase_a_best.launches
+    got = qt.encode_tiles(tiles, mode=Mode.CF_H, coreband=info.cband, device=cuda)
+    assert passes == 3 and phase_a_best.launches == before + passes
+    assert got == want
+    assert hashlib.sha256(got[0]).hexdigest() == benchutil.LANDSAT_ENCODE_SHA256
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint64])
+def test_one_image_best_encodes_go_through_k10(cuda, monkeypatch, dtype):
+    """The one-image best encodes (CF_H and CF, no sidecar, "ib", "ic"; a
+    best strip) take K10 once a call with its twin refused and write the
+    CPU's bytes; the u8 headline's to its pins."""
+    import hashlib
+
+    img = _best_raster(dtype)
+    if dtype == np.uint8:
+        img = headline_image()
+    cases = ((Mode.CF_H, False), (Mode.CF_H, True), (Mode.CF_H, "ic"), (Mode.CF, True))
+    want = [qt.encode(img, mode=mode, index=index, device="cpu") for mode, index in cases]
+    _refuse_k10_twin(monkeypatch)
+    before = phase_a_best.launches
+    got = [qt.encode(img, mode=mode, index=index, device=cuda) for mode, index in cases]
+    assert phase_a_best.launches == before + len(cases)
+    assert got == want
+    if dtype == np.uint8:
+        assert hashlib.sha256(got[1]).hexdigest() == benchutil.BEST_HEADLINE_SHA256["ib"]
+        assert hashlib.sha256(got[2]).hexdigest() == benchutil.BEST_HEADLINE_SHA256["ic"]
+    h, w, c = img.shape
+    se = qt.StripEncoder(w, h, c, qt.api.DT_FROM_NP[img.dtype], mode=Mode.CF_H,
+                         strip_rows=h // 2, device=cuda)
+    se.push(img[: h // 2])  # a whole strip, then the rest at the flush
+    se.push(img[h // 2:])
+    assert se.finish() == want[0]
+    assert phase_a_best.launches == before + len(cases) + 2
 
 
 def test_k7_matches_twin(cuda):

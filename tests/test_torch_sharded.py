@@ -35,7 +35,7 @@ from qb3_tpu_torch.parallel import sharded as tsh
 from qb3_tpu_torch.stitch import assemble_scatter, scatter_stitch_shard, stitch_bytes
 
 from . import corpus
-from .test_torch_best import kinds_scene
+from .best_edges import kinds_scene
 
 
 def cpu(n):

@@ -21,7 +21,7 @@ from qb3_tpu_torch.errors import QB3ShapeError
 from qb3_tpu_torch.parallel import sharded as tsh
 
 from . import corpus
-from .test_torch_best import kinds_scene
+from .best_edges import kinds_scene
 
 
 def cpu(n):
