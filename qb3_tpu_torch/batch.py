@@ -24,15 +24,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import container, profiling
+from . import container, framing, profiling
 from .api import (_NP_SIGNED, DT_FROM_NP, NP_FROM_DT, UNSIGNED, _fused_ix_params,
-                  _parse_best_sidecar, best_sidecar, default_cband, fast_encode, ic_inputs,
-                  narrow, put_on, stream_words, to_carrier, walk_inputs, widen)
+                  _parse_best_sidecar, default_cband, fast_encode, ic_inputs, narrow, put_on,
+                  stream_words, to_carrier, walk_inputs, widen)
 from .constants import B, B2, HILBERT, ZCURVE, DType, Mode
 from .errors import QB3ShapeError
 from .ops.bitpack import group_bits_bound, pack_groups_auto, words_to_bytes
 from .ops.decode import decode_groups, decode_indexed_narrow, payload_words, reconstruct_batch
-from .ops.decode_chunked import IC_DEFAULT_K, decode_chunked_auto, pack_ic, parse_ic
+from .ops.decode_chunked import IC_DEFAULT_K, decode_chunked_auto, parse_ic
 from .ops.phase_a_cuda import phase_a_best
 
 # groups (blocks x bands) the best modes' phase A takes in one pass: about
@@ -167,29 +167,19 @@ def encode_finish(plan: EncodePlan, words: np.ndarray, host: dict) -> list[bytes
     """The N streams from the fetched results: words (N, >= the longest
     stream's words) u32, host encode_dispatch's other outputs as arrays.
     Three passes over the batch, a span (profiling) each: finish.sidecar,
-    finish.headers, finish.bytes."""
+    finish.headers, finish.bytes.  framing.py gives each tile's sidecar
+    ("ib" for any true index in the best modes) and header."""
     n, h, w, nb = plan.uns.shape
     totals = host["totals"]
+    pieces = {k: v for k, v in host.items() if k != "totals"}
     with profiling.span("finish.sidecar", n):
-        sidecars = [_sidecar(plan, host, i) for i in range(n)]
+        sides = [framing.sidecar(plan.index, **{k: v[i] for k, v in pieces.items()})
+                 for i in range(n)]
     with profiling.span("finish.headers", n):
-        hdrs = [container.write_headers(w, h, nb, plan.dt, plan.mode, list(plan.cband), 1,
-                                        plan.header_order, idx, sig) for idx, sig in sidecars]
+        frame = framing.Frame(w, h, nb, plan.dt, list(plan.cband), 1, plan.header_order)
+        hdrs = [frame.header(plan.mode, *side) for side in sides]
     with profiling.span("finish.bytes", n):
         return [hdr + words_to_bytes(words[i], int(totals[i])) for i, hdr in enumerate(hdrs)]
-
-
-def _sidecar(plan: EncodePlan, host: dict, i: int):
-    """Tile i's sidecar (bytes or None) and its signature."""
-    if plan.index and plan.best:
-        return best_sidecar(host["glen"][i], host["meta16"][i], host["cfv"][i]), b"ib"
-    if plan.index == "ic":
-        if int(host["spans"][i].sum()) < 1 << 31:
-            return pack_ic(host["spans"][i], host["entry"][i], IC_DEFAULT_K), b"ic"
-        return None, b"ix"
-    if plan.index:
-        return host["glen"][i].astype("<u2").tobytes(), b"ix"
-    return None, b"ix"
 
 
 def encode_tiles(imgs: np.ndarray, mode: int = Mode.FTL, coreband=None,

@@ -15,7 +15,8 @@ sequential chain:
 Each device then runs the ordinary phase A and pack (K1) on its strip; the
 fast modes stitch inside the shard (stitch.scatter_stitch_shard) and
 assemble on the host, the best modes stitch on the first device (K6).  The
-result is the single-device stream byte for byte.  The decode shards the
+payload is the single-device stream's byte for byte (encode_sharded frames
+it as qb3_tpu's does, framing.py).  The decode shards the
 same way from an "ix", "ib" or "ic" sidecar: each device gets only the word
 window of its own strip, and the rung and prev chains cross the shards
 through all-gathered per-shard totals.
@@ -37,19 +38,19 @@ import threading
 import numpy as np
 import torch
 
-from .. import _build, container, rle
-from ..api import (DT_FROM_NP, NP_FROM_DT, UNSIGNED, _parse_best_sidecar, best_sidecar,
-                   default_cband, from_carrier, group_inputs, max_encoded_size, quantize,
-                   stream_words, to_carrier)
+from .. import _build, container, framing
+from ..api import (DT_FROM_NP, NP_FROM_DT, UNSIGNED, _parse_best_sidecar, default_cband,
+                   from_carrier, group_inputs, max_encoded_size, quantize, stream_words,
+                   to_carrier)
 from ..constants import (B, B2, HILBERT, ZCURVE, DType, Mode, is_best_mode, mode_uses_zcurve,
-                         needs_rle, ubits_for)
+                         ubits_for)
 from ..errors import QB3ShapeError
 from ..offsets import KIND_BITS, KIND_NORMAL, KIND_ZERO
 from ..ops.bitpack import group_bits_bound, pack_groups_auto, words_to_bytes
 from ..ops.bitutils import peek64, smag, srl, wrap
 from ..ops.chunkwalk_cuda import ic_walk_params
 from ..ops.decode import _NREG_IX, K5_KIND, decode_groups, dsw_arith, payload_words, reconstruct
-from ..ops.decode_chunked import IC_DEFAULT_K, chunk_spans, decode_chunked_auto, pack_ic, parse_ic
+from ..ops.decode_chunked import decode_chunked_auto, parse_ic
 from ..ops.encode import block_rungs, delta_mags, fast_symbols, gather_blocks
 from ..ops.encode_best import encode_best_blocks
 from ..ops.gather_cuda import GATHER_MAX_R, gather_span
@@ -253,9 +254,9 @@ def _host(t) -> np.ndarray:
 
 def _encode_sharded_payload(img, n_dev, order, cband, skipstep, best, devices):
     """Phase A and pack of every strip, then the stitch -> (payload bytes,
-    per-shard bit totals, glens, extra): extra is (rungs,) in the fast
-    modes, (meta16, cfv) in the best modes, each concatenated in stream
-    order."""
+    per-shard bit totals, the sidecar's pieces for framing.sidecar): glen
+    and rung in the fast modes, glen, meta16 and cfv in the best modes,
+    each concatenated in stream order."""
     h, w, nb = img.shape
     if h % (B * n_dev) != 0:
         raise QB3ShapeError("height must split into whole block rows per device")
@@ -286,15 +287,16 @@ def _encode_sharded_payload(img, n_dev, order, cband, skipstep, best, devices):
         stitched, total = stitch_words_device([o[0].to(dev0) for o in outs], totals,
                                               (total + 31) // 32)
         payload = words_to_bytes(_host(stitched).view(np.uint32), total)
-        extra = tuple(np.concatenate([_host(o[k]) for o in outs]) for k in (3, 4))
+        pieces = {k: np.concatenate([_host(o[i]) for o in outs])
+                  for k, i in (("glen", 2), ("meta16", 3), ("cfv", 4))}
     else:
         totals = np.array([int(o[2]) for o in outs], np.int64)
         n_owns = [int(o[1]) for o in outs]
         owns = [_host(o[0][:n + 1]).view(np.uint64) for o, n in zip(outs, n_owns)]
         payload = assemble_scatter(owns, n_owns, totals)
-        extra = (np.concatenate([_host(o[4]) for o in outs]),)
-    glens = np.concatenate([_host(o[2 if best else 3]) for o in outs])
-    return payload, totals, glens, extra
+        pieces = {"glen": np.concatenate([_host(o[3]) for o in outs]),
+                  "rung": np.concatenate([_host(o[4]) for o in outs]).reshape(-1, nb)}
+    return payload, totals, pieces
 
 
 def encode_fast_sharded_scatter(img: np.ndarray, n_dev: int, order: int = HILBERT,
@@ -317,24 +319,24 @@ def encode_fast_sharded(img: np.ndarray, n_dev: int, order: int = HILBERT,
     4 * n_dev.  Returns (payload bytes, per-shard bit lengths), byte-exact
     with the single-device stream.  encode_sharded() adds container
     framing."""
-    payload, totals, _, _ = _encode_sharded_payload(img, n_dev, order, cband, skipstep,
-                                                    False, devices)
+    payload, totals, _ = _encode_sharded_payload(img, n_dev, order, cband, skipstep, False,
+                                                 devices)
     return payload, totals
 
 
 def encode_sharded(img: np.ndarray, n_dev: int, mode: int | None = None, quanta: int = 1,
                    away: bool = False, coreband=None, index=False, devices=None) -> bytes:
     """Full container encode over n_dev shards: quanta, RLE post-pass,
-    stored fallback, core bands, and the ix / ic / ib sidecars, byte-exact
-    with the single-device Encoder.  As in qb3_tpu, a best mode writes the
-    "ib" sidecar for any true ``index``, "ic" included."""
+    stored fallback, core bands, and the ix / ic / ib sidecars.  The payload
+    is the single-device Encoder's bit for bit; the framing follows
+    qb3_tpu's encode_sharded, which differs from its Encoder twice: a best
+    mode writes the "ib" sidecar for any true ``index``, "ic" included, and
+    an RLE mode whose post-pass is not taken stores the raster where the
+    coded stream is not smaller than it (framing.py)."""
     h, w, nb = img.shape
     dtype = DT_FROM_NP[img.dtype]
     user_mode = Mode(mode if mode is not None else Mode.FTL)
-    mode = user_mode
-    if needs_rle(mode):
-        mode = {Mode.RLE: Mode.BASE_Z, Mode.CF_RLE: Mode.CF,
-                Mode.RLE_H: Mode.BASE_H, Mode.CF_RLE_H: Mode.CF_H}[mode]
+    mode = framing.RLE_BASE.get(user_mode, user_mode)
     order = ZCURVE if mode_uses_zcurve(user_mode) else 0
     cband = tuple(coreband) if coreband is not None else tuple(default_cband(nb))
 
@@ -343,38 +345,12 @@ def encode_sharded(img: np.ndarray, n_dev: int, mode: int | None = None, quanta:
         work = quantize(work, quanta, away)
     uns = work.view(UNSIGNED[work.dtype.itemsize])
 
-    best = is_best_mode(mode)
-    payload, _, glens, extra = _encode_sharded_payload(
-        uns, n_dev, order or HILBERT, cband, mode == Mode.FTL, best, devices)
-
-    idx_bytes, idx_sig = None, b"ix"
-    if index:
-        if best:
-            idx_bytes = best_sidecar(glens, *extra)
-            if idx_bytes is not None:
-                idx_sig = b"ib"
-        elif index == "ic":
-            spans, entry = chunk_spans(glens.astype(np.int64), extra[0].reshape(-1, nb),
-                                       np.zeros(nb, np.int32), IC_DEFAULT_K)
-            if int(spans.sum()) < 1 << 31:  # int32 bit cursors in the device walk
-                idx_bytes, idx_sig = pack_ic(spans, entry, IC_DEFAULT_K), b"ic"
-        else:
-            idx_bytes = glens.astype("<u2").tobytes()
-
-    header = container.write_headers(w, h, nb, dtype, mode, list(cband), quanta, order,
-                                     idx_bytes, idx_sig)
-    result = header + payload
-    max_size = max_encoded_size(w, h, nb, dtype)
-    if needs_rle(user_mode) and len(result) <= max_size // 2:
-        packed = rle.rle0_encode(payload)
-        if len(packed) < len(payload) and len(packed) <= max_size - len(result):
-            header = container.write_headers(w, h, nb, dtype, user_mode, list(cband), quanta,
-                                             order, idx_bytes, idx_sig)
-            return header + packed
-    if img.nbytes <= len(result):
-        hdr = container.write_headers(w, h, nb, dtype, Mode.STORED, list(cband), quanta, order)
-        return hdr + img.tobytes()
-    return result
+    payload, _, pieces = _encode_sharded_payload(
+        uns, n_dev, order or HILBERT, cband, mode == Mode.FTL, is_best_mode(mode), devices)
+    frame = framing.Frame(w, h, nb, dtype, list(cband), quanta, order)
+    # store_rle: qb3_tpu/parallel/sharded.py:305-308 stores after an RLE mode too
+    return frame.finish(user_mode, payload, framing.sidecar(index, **pieces),
+                        max_encoded_size(w, h, nb, dtype), raw=img, store_rle=True)
 
 
 def encode_tiles_sharded(tiles: np.ndarray, n_batch: int, n_rows: int,

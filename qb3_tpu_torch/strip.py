@@ -23,10 +23,10 @@ stored-raw fallback for incompressible images is not available in streaming
 mode (the raster is gone by finish()); quanta, the RLE0 post-pass, core
 bands, scan order and the sidecars match qb3_tpu's StripEncoder: "ix" and
 "ic" in the fast modes, "ib" in the best modes (for index True or "ic"),
-assembled from the strips' decode metadata.  The decoder walks the stream
-strip by strip on the host (the C++ walk, or the Python one), carrying the
-per-band previous CF, and decodes each strip with K7 + K5 and reconstruct
-on the device.
+assembled from the strips' decode metadata; framing.py frames the stream.
+The decoder walks the stream strip by strip on the host (the C++ walk, or
+the Python one), carrying the per-band previous CF, and decodes each strip
+with K7 + K5 and reconstruct on the device.
 """
 
 from __future__ import annotations
@@ -34,16 +34,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import container, rle
-from .api import (NP_FROM_DT, RLE_BASE, UNSIGNED, Decoder, Encoder, best_sidecar,
-                  dequantize, from_carrier, group_inputs, padded_words, quantize,
-                  walk_offsets)
+from . import container, framing, rle
+from .api import (NP_FROM_DT, UNSIGNED, Decoder, Encoder, dequantize, from_carrier,
+                  group_inputs, padded_words, quantize, walk_offsets)
 from .constants import B, B2, HILBERT, DType, Mode, needs_rle
 from .offsets import KIND_CF, KIND_CF0
 from .errors import QB3DataError, QB3ShapeError
 from .ops.bitpack import words_to_bytes
 from .ops.decode import decode_groups, reconstruct
-from .ops.decode_chunked import IC_DEFAULT_K, chunk_spans, pack_ic
+from .ops.decode_chunked import IC_DEFAULT_K
 from .stitch import stitch_words_device
 
 class StripEncoder:
@@ -63,7 +62,7 @@ class StripEncoder:
         if coreband is not None:
             self._enc.set_coreband(coreband)
         self.user_mode = self._enc.mode
-        self.mode = RLE_BASE.get(self.user_mode, self.user_mode)
+        self.mode = framing.RLE_BASE.get(self.user_mode, self.user_mode)
         self.strip_rows = strip_rows
         self.with_index = with_index
         self.index_chunk_blocks = index_chunk_blocks
@@ -74,9 +73,7 @@ class StripEncoder:
         self._rows_seen = 0
         self._parts = []        # each strip's words on the device, trimmed to its total
         self._totals = []       # each strip's bits
-        self._glens = []
-        self._rungs = []
-        self._best_meta = []    # (meta16, cfv) per strip, for the "ib" sidecar
+        self._pieces = []       # each strip's sidecar pieces (framing.sidecar), on the host
         self._done = False
 
     # ------------------------------------------------------------------ feed
@@ -129,11 +126,9 @@ class StripEncoder:
         self._parts.append(used.clone())  # the copy frees the worst-case buffer
         self._totals.append(total)
         if self.with_index:
-            self._glens.append(glen.cpu().numpy())
-            if best is None:
-                self._rungs.append(rung.cpu().numpy())
-            else:
-                self._best_meta.append((best[0].cpu().numpy(), best[1].cpu().numpy()))
+            pieces = dict(glen=glen, rung=rung) if best is None else \
+                dict(glen=glen, meta16=best[0], cfv=best[1])
+            self._pieces.append({k: v.cpu().numpy() for k, v in pieces.items()})
 
     # ---------------------------------------------------------------- finish
 
@@ -154,37 +149,12 @@ class StripEncoder:
         self._parts = []
         payload = words_to_bytes(words.cpu().numpy().view(np.uint32), total)
 
-        index, index_sig = None, b"ix"
-        if self.with_index and self._glens:
-            glens = np.concatenate([g.reshape(-1) for g in self._glens])
-            if self._best_meta:
-                # Encoder._best_sidecar's payload, from the strips' meta
-                index, index_sig = best_sidecar(
-                    glens, np.concatenate([m for m, _ in self._best_meta]),
-                    np.concatenate([c for _, c in self._best_meta])), b"ib"
-            elif self.with_index == "ic":
-                rungs = np.concatenate(self._rungs, axis=0)
-                k = self.index_chunk_blocks or IC_DEFAULT_K
-                spans, entry = chunk_spans(glens.astype(np.int64), rungs,
-                                           np.zeros(e.nbands, np.int32), k)
-                if int(spans.sum()) < 1 << 31:  # int32 bit cursors in the device walk
-                    index, index_sig = pack_ic(spans, entry, k), b"ic"
-            else:
-                index = glens.astype("<u2").tobytes()
-        header = container.write_headers(
-            e.xsize, e.ysize, e.nbands, e.dtype, self.mode, e.cband,
-            e.quanta, e.order, index, index_sig)
-        result = header + payload
-        if needs_rle(self.user_mode):
-            if len(result) <= e.max_encoded_size() // 2:
-                packed = rle.rle0_encode(payload)
-                if len(packed) < len(payload) and \
-                        len(packed) <= e.max_encoded_size() - len(result):
-                    header = container.write_headers(
-                        e.xsize, e.ysize, e.nbands, e.dtype, self.user_mode,
-                        e.cband, e.quanta, e.order, index, index_sig)
-                    return header + packed
-        return result
+        pieces = {k: np.concatenate([p[k] for p in self._pieces]) for k in self._pieces[0]} \
+            if self._pieces else {}
+        side = framing.sidecar(self.with_index, **pieces,
+                               k=self.index_chunk_blocks or IC_DEFAULT_K)
+        # raw=None: no stored fallback, the raster is gone (qb3_tpu/strip.py:16-19)
+        return e._frame().finish(self.user_mode, payload, side, e.max_encoded_size(), raw=None)
 
 
 class StripDecoder:

@@ -25,7 +25,7 @@ from qb3_tpu.api import Encoder as JEncoder
 from qb3_tpu.batch import decode_tiles as j_decode_tiles
 from qb3_tpu.batch import encode_tiles as j_encode_tiles
 from qb3_tpu.ops import encode_best as jbest
-from qb3_tpu_torch import batch, container
+from qb3_tpu_torch import batch, container, framing
 from qb3_tpu_torch.api import DT_FROM_NP, default_cband, to_carrier
 from qb3_tpu_torch.benchutil import (BEST_HEADLINE_SHA256, LANDSAT_ENCODE_SHA256,
                                      LANDSAT_SAMPLE, headline_image)
@@ -176,7 +176,8 @@ def test_sidecar_cutoffs():
     """The three cut-offs: a CF past 16 bits writes no "ib" sidecar (and
     "ic" falls back to "ib", then to none); an entry pcf past 16 bits makes
     chunk_spans_best give None; 2^31 bits of spans make the "ic" sidecar
-    None.  Each as qb3_tpu decides it."""
+    None, and framing.sidecar writes "ib" in their place.  Each as qb3_tpu
+    decides it."""
     img = corpus.to_type(corpus.natural8(12, 16, 1, seed=16), np.uint32, 65537 * 3)
     for index in (True, "ic"):
         stream = qt.encode(img, mode=Mode.CF_H, index=index, device=CPU)
@@ -188,19 +189,21 @@ def test_sidecar_cutoffs():
     rng = np.random.default_rng(17)
     rungs = rng.integers(0, 8, (n, 1)).astype(np.int32)
     pcf = rng.integers(0, 1 << 16, (n, 1)).astype(np.int64)
+    meta16, cfv = np.zeros(n, np.int32), np.zeros(n, np.int64)  # no CF group: "ib" fits
     for glen, big_pcf in ((60000, False), (100, True), (100, False)):
         glens = np.full(n, glen, np.int64)
         p = pcf.copy()
         if big_pcf:
             p[8 * 7] = 1 << 20  # the entry state of chunk 7
-        enc, jenc = qt.Encoder(400, 1600, 1, 0, device=CPU), JEncoder(400, 1600, 1, 0)
-        enc._last_glens, enc._last_rungs = glens.astype(np.uint16), rungs
-        enc._last_best = (None, None, torch.from_numpy(p))
+        jenc = JEncoder(400, 1600, 1, 0)
         jenc._last_glens, jenc._last_rungs, jenc._last_pcf = glens.astype(np.uint16), rungs, p
         entry = np.zeros(1, np.int32), np.zeros(1, np.uint64)
-        got, want = enc._chunked_sidecar_best(*entry), jenc._chunked_sidecar_best(*entry)
-        assert got == want
-        assert (got is None) == (glen == 60000 or big_pcf)
+        got, sig = framing.sidecar("ic", glens.astype(np.uint16), rungs, entry[0], meta16=meta16,
+                                   cfv=cfv, pcf_in=p, entry_cf=entry[1])
+        want = jenc._chunked_sidecar_best(*entry)
+        assert (sig == b"ic") == (want is not None)
+        assert got == (want if sig == b"ic" else framing.best_sidecar(glens, meta16, cfv))
+        assert (want is None) == (glen == 60000 or big_pcf)
 
 
 def _ic_best_stream(name):

@@ -26,7 +26,7 @@ from qb3_tpu import container as jcontainer
 from qb3_tpu.ops import encode_best as jbest
 from qb3_tpu.parallel import sharded as jsh
 from qb3_tpu.stitch import scatter_stitch_shard as j_scatter_stitch_shard
-from qb3_tpu_torch import container
+from qb3_tpu_torch import api, container, framing
 from qb3_tpu_torch.api import default_cband, to_carrier
 from qb3_tpu_torch.constants import HILBERT, Mode
 from qb3_tpu_torch.errors import QB3ShapeError
@@ -161,6 +161,20 @@ def test_stored_fallback():
     s = tsh.encode_sharded(img, 4, mode=Mode.FTL, devices=cpu(4))
     assert container.parse_headers(s).mode == Mode.STORED
     assert s == qb3_tpu.encode(img, mode=Mode.FTL)
+
+
+@pytest.mark.parametrize("mode", [Mode.RLE, Mode.RLE_H], ids=["rle", "rle-h"])
+def test_stored_fallback_after_rle(mode):
+    """qb3_tpu's encode_sharded stores an incompressible raster after an RLE
+    mode whose post-pass is not taken; the one-shot encode, the port's and
+    qb3_tpu's, keeps the coded stream (framing.py's store_rle)."""
+    img = corpus.random_noise(16, 16, 1, np.uint8, seed=135)
+    s = tsh.encode_sharded(img, 4, mode=mode, devices=cpu(4))
+    assert s == jsh.encode_sharded(img, 4, mode=mode)
+    assert container.parse_headers(s).mode == Mode.STORED
+    one = api.encode(img, mode=mode, device="cpu")
+    assert one == qb3_tpu.encode(img, mode=mode)
+    assert container.parse_headers(one).mode != Mode.STORED and len(one) > len(s)
 
 
 def test_2d_mesh_batch_rows():
@@ -310,7 +324,7 @@ def test_sidecar_cutoffs(monkeypatch):
             return sp, entry
         return spans
 
-    monkeypatch.setattr(tsh, "chunk_spans", huge(tsh.chunk_spans))
+    monkeypatch.setattr(framing, "chunk_spans", huge(framing.chunk_spans))
     monkeypatch.setattr(jdc, "chunk_spans", huge(jdc.chunk_spans))
     img = corpus.natural8(32, 64, 1, seed=17)
     s = tsh.encode_sharded(img, 4, mode=Mode.FTL, index="ic", devices=cpu(4))
