@@ -14,7 +14,9 @@ row and pipeline.py overlaps across batches on CUDA streams: a host plan
 the upload of its inputs (upload_tiles / decode_inputs), the device work
 (encode_dispatch / decode_dispatch: device tensors back, no synchronize)
 and the host finish (encode_finish / decode_finish: streams or arrays from
-the fetched results).
+the fetched results).  On a CUDA device encode_tiles copies both ways
+through page-locked buffers (staged_put, fetch_round); elsewhere the
+copies are plain.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from . import container, framing, profiling
 from .api import (_NP_SIGNED, DT_FROM_NP, NP_FROM_DT, UNSIGNED, _fused_ix_params,
                   _parse_best_sidecar, default_cband, fast_encode, ic_inputs, narrow, put_on,
-                  stream_words, to_carrier, walk_inputs, widen)
+                  stream_words, walk_inputs, widen)
 from .constants import B, B2, HILBERT, ZCURVE, DType, Mode
 from .errors import QB3ShapeError
 from .ops.bitpack import group_bits_bound, pack_groups_auto, words_to_bytes
@@ -51,22 +53,65 @@ def _flat_tile_layout(wlists):
     return flat, tw64 * 2
 
 
+def staged_put(device):
+    """The batch encode's host-to-device copy (api.put_on's interface): on
+    a CUDA device each array goes through a page-locked buffer from
+    PyTorch's caching host allocator (reused once warm) and a non-blocking
+    copy on the current stream, one batch.staged_uploads a call; elsewhere
+    api.put_on's plain copy."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return put_on(dev)
+
+    def put(arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        staged.copy_(t)
+        profiling.count("batch.staged_uploads")
+        # the host allocator keeps `staged` until the copy has run
+        return staged.to(dev, non_blocking=True)
+
+    return put
+
+
+def fetch_round(tensors: dict) -> dict:
+    """Device tensors -> host arrays, in one round: on a CUDA device each
+    copied into a page-locked tensor without a synchronize, then one wait
+    on an event, one batch.staged_fetches; elsewhere .cpu().  The arrays
+    are views of the tensors, which they keep alive."""
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda":
+        return {k: v.cpu().numpy() for k, v in tensors.items()}
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+            for k, v in tensors.items()}
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    done.synchronize()
+    profiling.count("batch.staged_fetches")
+    return {k: v.numpy() for k, v in host.items()}
+
+
 def best_encode_tiles(uns: np.ndarray, order: int, cband: tuple, n_words: int, device):
     """The best modes' batch encode (qb3_tpu's _batch_best_kernel): phase A
     (K10, or its twin on the CPU) for each group of whole tiles of at most
     BEST_GROUPS groups (one tile when a tile has more), into one (N,
     ngroups, S) symbol buffer, then one
     K1 launch -> (words, totals, glen, meta16, cfv).  A tile's symbols are
-    the same whatever group it is in.  Spans (profiling), on the device's
-    current stream: batch.upload and encode.phase_a a pass, encode.pack."""
+    the same whatever group it is in.  Each pass's tiles are copied at
+    their width by staged_put and widened on the device; on the card the
+    copy does not block, so pass k+1's staging runs while pass k's copy and
+    phase A do.  Spans (profiling), on the device's current stream:
+    batch.upload and encode.phase_a a pass, encode.pack."""
     n, h, w, nb = uns.shape
-    tbits = 8 * uns.dtype.itemsize
+    size = uns.dtype.itemsize
+    tbits = 8 * size
+    put = staged_put(device)
     per = max(1, BEST_GROUPS // (((h + B - 1) // B) * ((w + B - 1) // B) * nb))
     codes = lens = meta16 = cfv = None
     for t0 in range(0, n, per):
         k = min(per, n - t0)
         with profiling.span("batch.upload", k, device):
-            x = to_carrier(uns[t0:t0 + per], device)
+            x = widen(put(uns[t0:t0 + per].view(_NP_SIGNED[size])), size)
         with profiling.span("encode.phase_a", k, device):
             zero = torch.zeros(k, nb, dtype=torch.int64, device=device)
             c, ln, _, _, _, m16, cf, _, _ = phase_a_best(x, zero, zero, zero, order, cband,
@@ -122,8 +167,8 @@ def plan_encode(imgs: np.ndarray, mode: int = Mode.FTL, coreband=None,
 
 def upload_tiles(plan: EncodePlan, put) -> torch.Tensor | None:
     """The tiles on the device as the signed twin of their type (api.widen
-    makes the carrier), copied by put (api.put_on); None for the best
-    modes, whose phase A uploads its passes itself."""
+    makes the carrier), copied by put (staged_put, or pipeline.Lanes.put);
+    None for the best modes, whose phase A uploads its passes itself."""
     if plan.best:
         return None
     return put(plan.uns.view(_NP_SIGNED[plan.uns.dtype.itemsize]))
@@ -189,19 +234,21 @@ def encode_tiles(imgs: np.ndarray, mode: int = Mode.FTL, coreband=None,
     FTL/BASE, with no sidecar, the "ic" sidecar or (index True / "ix") the
     "ix" sidecar; CF/CF_H (best_encode_tiles), with no sidecar or (index
     True or "ic", as qb3_tpu writes it) the "ib" sidecar.  Each tile's
-    stream is byte-identical to a standalone encode.  Spans (profiling), of
-    one batch: batch.fetch (the blocking copies, timed on the device too)
-    and batch.finish.
+    stream is byte-identical to a standalone encode.  The tiles go up by
+    staged_put; the results come back in two rounds of fetch_round (the
+    totals and sidecar pieces, then the words the longest stream uses).
+    Spans (profiling), of one batch: batch.fetch (both rounds, timed on the
+    device too) and batch.finish.
     """
     plan = plan_encode(imgs, mode, coreband, index)
     n = imgs.shape[0]
     with profiling.batch():
-        out = encode_dispatch(plan, upload_tiles(plan, put_on(device)), device)
+        out = encode_dispatch(plan, upload_tiles(plan, staged_put(device)), device)
         words = out.pop("words")
         with profiling.span("batch.fetch", n, words.device):
-            host = {k: v.cpu().numpy() for k, v in out.items()}
+            host = fetch_round(out)
             used = int(host["totals"].max() + 31) // 32
-            words = words[:, :used].cpu().numpy().view(np.uint32)
+            words = fetch_round({"words": words[:, :used]})["words"].view(np.uint32)
         with profiling.span("batch.finish", n):
             return encode_finish(plan, words, host)
 

@@ -26,8 +26,8 @@ batch: the pipeline's upload (``pipeline.upload``, the pinned staging of
 ``Lanes.put``), its wait on a batch's fetch (``pipeline.fetch_wait``: how
 long the host waits for the card, its slack) and its finish
 (``pipeline.finish``); the fast and best phase A (``encode.phase_a``) and
-K1's pack (``encode.pack``); the best batch's pageable uploads
-(``batch.upload``), its blocking fetch (``batch.fetch``) and its finish
+K1's pack (``encode.pack``); the best batch's uploads (``batch.upload``,
+a pass's staging and copy), its fetch (``batch.fetch``) and its finish
 (``batch.finish``); inside ``batch.encode_finish`` the ``finish.sidecar``,
 ``finish.headers`` and ``finish.bytes`` passes.  A span records its name,
 host start and end (``time.perf_counter_ns``), its parent span, its batch
@@ -44,7 +44,10 @@ name (``pack_groups_chunked`` is K1, ``chunkwalk8`` K2, ...) and
 ``pipeline.cap_misses``: the pipelined encode's batches in which a tile
 passed the adaptive fetch cap, so that the batch's words were fetched
 again whole, synchronously (a batch that compresses worse than the one
-before it; counted whether the tracer is on or not).
+before it; counted whether the tracer is on or not), and
+``batch.staged_uploads`` / ``batch.staged_fetches``: the batch encode's
+copies through page-locked buffers on a CUDA device (a best pass's or a
+batch's upload; a fetch round, two a batch), which the CPU never counts.
 
 Inside ``trace()`` (the CLI's ``--trace``) the tracer is on and each span
 is also a ``torch.profiler.record_function`` range named ``qb3:<stage>``,
@@ -74,7 +77,7 @@ _anchor = None  # (perf_counter_ns, time_ns) taken by enable()
 _ids = itertools.count()
 _batch_ids = itertools.count()
 _local = threading.local()  # per thread: the open spans' ids, the batch
-_COUNTERS = {"pipeline.cap_misses": 0}
+_COUNTERS = {"pipeline.cap_misses": 0, "batch.staged_uploads": 0, "batch.staged_fetches": 0}
 
 
 class _Noop:

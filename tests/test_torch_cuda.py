@@ -758,6 +758,52 @@ def test_landsat_batch_goes_through_k10(cuda, monkeypatch):
     assert hashlib.sha256(got[0]).hexdigest() == benchutil.LANDSAT_ENCODE_SHA256
 
 
+def test_batch_copies_are_staged_and_match_the_cpu(cuda):
+    """batch.encode_tiles on the card copies through page-locked buffers:
+    Landsat CF_H batches of 24, 1, 9, 17 and 24 tiles (flips, turns and
+    shifts of the sample, as the benchmark builds them) and a u8 FTL "ic"
+    batch, back to back from one host buffer rewritten between calls, so
+    that a staging buffer reused while its copy is in flight would show,
+    give the CPU's streams; each batch counts a staged upload a pass (3 for
+    24 Landsat tiles) and two staged fetch rounds."""
+    from qb3_tpu_torch import batch, profiling
+
+    with open(os.path.join(ROOT, LANDSAT_SAMPLE), "rb") as f:
+        sample = f.read()
+    info = container.parse_headers(sample)
+    land = qt.decode(sample, device="cpu")[0]
+    rng = np.random.default_rng(2801)
+    pool = [land]
+    for k in rng.permutation(8)[:7]:
+        x = np.rot90(land, k % 4, (0, 1))
+        x = x[::-1] if k >= 4 else x
+        pool.append(np.roll(x, tuple(4 * int(v) for v in rng.integers(0, 128, 2)), (0, 1)))
+    pool = np.ascontiguousarray(np.stack(pool))
+    want = qt.encode_tiles(pool, mode=Mode.CF_H, coreband=info.cband, device="cpu")
+    per = batch.BEST_GROUPS // (128 * 128 * 8)
+    buf = np.empty((24, *land.shape), land.dtype)
+    for n in (24, 1, 9, 17, 24):
+        idx = rng.integers(0, len(pool), n)
+        np.copyto(buf[:n], pool[idx])
+        before = profiling.counters()
+        got = qt.encode_tiles(buf[:n], mode=Mode.CF_H, coreband=info.cband, device=cuda)
+        after = profiling.counters()
+        assert got == [want[i] for i in idx]
+        assert after["batch.staged_uploads"] - before["batch.staged_uploads"] == -(-n // per)
+        assert after["batch.staged_fetches"] - before["batch.staged_fetches"] == 2
+    assert per == 8
+    tiles = [headline_image(64, 64, 3, seed=s) for s in range(12)]
+    u8 = np.empty((6, 64, 64, 3), np.uint8)
+    for b in (tiles[:6], tiles[6:]):
+        np.copyto(u8, np.stack(b))
+        before = profiling.counters()
+        got = qt.encode_tiles(u8, index="ic", device=cuda)
+        after = profiling.counters()
+        assert got == qt.encode_tiles(np.stack(b), index="ic", device="cpu")
+        assert after["batch.staged_uploads"] - before["batch.staged_uploads"] == 1
+        assert after["batch.staged_fetches"] - before["batch.staged_fetches"] == 2
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint64])
 def test_one_image_best_encodes_go_through_k10(cuda, monkeypatch, dtype):
     """The one-image best encodes (CF_H and CF, no sidecar, "ib", "ic"; a

@@ -4,7 +4,8 @@ bounded ring, per thread; the encode paths' streams the same with it on
 and off (batch.encode_tiles in FTL "ic" and CF_H, the pipelined encode);
 "qb3:" ranges in profiling.trace()'s Chrome trace and none in a plain
 profile; profiler_us against a record_function marker; counters() with
-every kernel wrapper's launches and the pipeline's fetch-cap misses.
+every kernel wrapper's launches, the pipeline's fetch-cap misses and the
+batch encode's staged copies, which the CPU never counts.
 
 The card's part (device times, the streams on the card) skips without a
 CUDA device.  This file imports neither jax nor qb3_tpu:
@@ -30,6 +31,7 @@ from qb3_tpu_torch.constants import Mode
 
 OPS = os.path.join(os.path.dirname(os.path.abspath(profiling.__file__)), "ops")
 FINISH = ("finish.sidecar", "finish.headers", "finish.bytes")
+STAGED = ("batch.staged_uploads", "batch.staged_fetches")
 
 
 @pytest.fixture(autouse=True)
@@ -141,6 +143,23 @@ def test_streams_are_the_same_with_the_tracer_on(path):
             assert r["parent"] == (ids[finish] if r["name"] in FINISH else None)
 
 
+@pytest.mark.parametrize("path", ["ftl_ic", "cf_h"])
+def test_cpu_batch_copies_are_not_staged(path):
+    """On the CPU batch.encode_tiles copies plainly: neither staged counter
+    moves, and the path keeps its copy spans (batch.upload a best pass,
+    batch.fetch a batch)."""
+    encode, names = PATHS[path]
+    before = profiling.counters()
+    profiling.enable()
+    encode("cpu", 13)
+    after = profiling.counters()
+    assert {k: after[k] - before[k] for k in STAGED} == {k: 0 for k in STAGED}
+    rs = profiling.records()
+    assert {r["name"] for r in rs} == names
+    copies = [r["name"] for r in rs if r["name"] in ("batch.upload", "batch.fetch")]
+    assert copies == (["batch.upload", "batch.fetch"] if path == "cf_h" else ["batch.fetch"])
+
+
 @pytest.mark.parametrize("order,misses", [(("smooth", "noisy", "smooth"), 0),
                                           (("smooth", "smooth", "noisy"), 1)],
                          ids=["smooth-noisy-smooth", "smooth-smooth-noisy"])
@@ -207,7 +226,7 @@ def test_counters_hold_every_wrappers_launches(monkeypatch):
     c = profiling.counters()
     assert {name: c[name] for _, name in found} == \
         {name: 100 + k for k, (_, name) in enumerate(found)}
-    assert set(c) == {name for _, name in found} | {"pipeline.cap_misses"}
+    assert set(c) == {name for _, name in found} | {"pipeline.cap_misses", *STAGED}
 
 
 def test_ring_keeps_the_newest_spans_up_to_its_bound(monkeypatch):
