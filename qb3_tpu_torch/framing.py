@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from . import container, rle
+from . import container, profiling, rle
 from .constants import Mode, needs_rle
 from .offsets import KIND_CF, KIND_CF0
 from .ops.decode_chunked import (IC_DEFAULT_K, chunk_spans, chunk_spans_best, pack_ic,
@@ -109,7 +109,8 @@ class Frame(NamedTuple):
         result = self.header(RLE_BASE.get(user_mode, user_mode), *side) + payload
         if needs_rle(user_mode):
             if len(result) <= max_size // 2:
-                packed = rle.rle0_encode(payload)
+                with profiling.span("finish.rle0"):
+                    packed = rle.rle0_encode(payload)
                 if len(packed) < len(payload) and len(packed) <= max_size - len(result):
                     return self.header(user_mode, *side) + packed
             if not store_rle:

@@ -29,7 +29,15 @@ long the host waits for the card, its slack) and its finish
 K1's pack (``encode.pack``); the best batch's uploads (``batch.upload``,
 a pass's staging and copy), its fetch (``batch.fetch``) and its finish
 (``batch.finish``); inside ``batch.encode_finish`` the ``finish.sidecar``,
-``finish.headers`` and ``finish.bytes`` passes.  A span records its name,
+``finish.headers`` and ``finish.bytes`` passes.  The strip encoder
+(``strip.StripEncoder``) opens ``strip.push`` around each push, and inside
+it, for each strip the push completes, ``strip.quantize`` (the host
+quantizer, where the step is 2 or more) and ``strip.encode`` (the strip's
+upload, phase A, K1 and the blocking reads of its exit state and bit
+total, with device ms); its ``finish()`` is ``strip.finish``, around
+``strip.stitch`` (K6's stitch of the strips' words, with device ms) and,
+in an RLE mode, ``finish.rle0`` (the RLE0 post-pass of
+``framing.Frame.finish``).  A span records its name,
 host start and end (``time.perf_counter_ns``), its parent span, its batch
 (every span of one batch shares an id: the pipeline interleaves batch k's
 finish with batch k+1's dispatch), its tiles and, opened on a CUDA
@@ -47,7 +55,11 @@ again whole, synchronously (a batch that compresses worse than the one
 before it; counted whether the tracer is on or not), and
 ``batch.staged_uploads`` / ``batch.staged_fetches``: the batch encode's
 copies through page-locked buffers on a CUDA device (a best pass's or a
-batch's upload; a fetch round, two a batch), which the CPU never counts.
+batch's upload; a fetch round, two a batch), which the CPU never counts,
+and ``strip.strips`` / ``strip.scenes``: the strips the strip encoder
+encoded and its ``finish()`` calls (a 6000-row scene pushed in 512-row
+pieces at ``strip_rows=512``: 12 and 1), counted whether the tracer is on
+or not, as every counter is.
 
 Inside ``trace()`` (the CLI's ``--trace``) the tracer is on and each span
 is also a ``torch.profiler.record_function`` range named ``qb3:<stage>``,
@@ -77,7 +89,8 @@ _anchor = None  # (perf_counter_ns, time_ns) taken by enable()
 _ids = itertools.count()
 _batch_ids = itertools.count()
 _local = threading.local()  # per thread: the open spans' ids, the batch
-_COUNTERS = {"pipeline.cap_misses": 0, "batch.staged_uploads": 0, "batch.staged_fetches": 0}
+_COUNTERS = {"pipeline.cap_misses": 0, "batch.staged_uploads": 0, "batch.staged_fetches": 0,
+             "strip.strips": 0, "strip.scenes": 0}
 
 
 class _Noop:

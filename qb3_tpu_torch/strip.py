@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import container, framing, rle
+from . import container, framing, profiling, rle
 from .api import (NP_FROM_DT, UNSIGNED, Decoder, Encoder, dequantize, from_carrier,
                   group_inputs, padded_words, quantize, walk_offsets)
 from .constants import B, B2, HILBERT, DType, Mode, needs_rle
@@ -86,9 +86,10 @@ class StripEncoder:
             raise QB3ShapeError(f"dtype mismatch: {rows.dtype}")
         if self._rows_seen + rows.shape[0] > e.ysize:
             raise QB3ShapeError("more rows than the declared height")
-        self._pending = np.concatenate([self._pending, rows], axis=0)
-        self._rows_seen += rows.shape[0]
-        self._drain(flush=self._rows_seen == e.ysize)
+        with profiling.span("strip.push"):
+            self._pending = np.concatenate([self._pending, rows], axis=0)
+            self._rows_seen += rows.shape[0]
+            self._drain(flush=self._rows_seen == e.ysize)
 
     def _drain(self, flush: bool = False):
         """Encode aligned strips as their rows become available.
@@ -119,12 +120,15 @@ class StripEncoder:
         e = self._enc
         work = strip
         if e.quanta >= 2:
-            work = quantize(work, e.quanta, e.away)
+            with profiling.span("strip.quantize"):
+                work = quantize(work, e.quanta, e.away)
         uns = work.view(UNSIGNED[work.dtype.itemsize])
-        used, total, state, glen, rung, best = e._encode_words(uns, self.mode)
-        e._commit_state(state)
-        self._parts.append(used.clone())  # the copy frees the worst-case buffer
+        with profiling.span("strip.encode", device=e.device):
+            used, total, state, glen, rung, best = e._encode_words(uns, self.mode)
+            e._commit_state(state)
+            self._parts.append(used.clone())  # the copy frees the worst-case buffer
         self._totals.append(total)
+        profiling.count("strip.strips")
         if self.with_index:
             pieces = dict(glen=glen, rung=rung) if best is None else \
                 dict(glen=glen, meta16=best[0], cfv=best[1])
@@ -139,13 +143,21 @@ class StripEncoder:
         if self._rows_seen != e.ysize:
             raise QB3ShapeError(
                 f"got {self._rows_seen} rows, declared {e.ysize}")
+        with profiling.span("strip.finish"):
+            stream = self._finish()
+        profiling.count("strip.scenes")
+        return stream
+
+    def _finish(self) -> bytes:
+        e = self._enc
         self._drain(flush=True)
         if e.ysize % B:  # final shifted block row (QB3encode.h:409-416)
             i0 = (e.ysize - B) - self._row0
             self._encode_strip(self._pending[i0 : i0 + B])
         self._done = True
         total = sum(self._totals)
-        words, total = stitch_words_device(self._parts, self._totals, (total + 31) // 32)
+        with profiling.span("strip.stitch", device=e.device):
+            words, total = stitch_words_device(self._parts, self._totals, (total + 31) // 32)
         self._parts = []
         payload = words_to_bytes(words.cpu().numpy().view(np.uint32), total)
 

@@ -5,7 +5,9 @@ and off (batch.encode_tiles in FTL "ic" and CF_H, the pipelined encode);
 "qb3:" ranges in profiling.trace()'s Chrome trace and none in a plain
 profile; profiler_us against a record_function marker; counters() with
 every kernel wrapper's launches, the pipeline's fetch-cap misses and the
-batch encode's staged copies, which the CPU never counts.
+batch encode's staged copies, which the CPU never counts; the strip
+encoder's spans, nested under each push and its finish (the RLE0 pass only
+in an RLE mode), and its strips and scenes counted.
 
 The card's part (device times, the streams on the card) skips without a
 CUDA device.  This file imports neither jax nor qb3_tpu:
@@ -26,12 +28,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from qb3_tpu_torch import batch, pipeline, profiling
-from qb3_tpu_torch.constants import Mode
+from qb3_tpu_torch import batch, container, pipeline, profiling, strip
+from qb3_tpu_torch.constants import DType, Mode
 
 OPS = os.path.join(os.path.dirname(os.path.abspath(profiling.__file__)), "ops")
 FINISH = ("finish.sidecar", "finish.headers", "finish.bytes")
 STAGED = ("batch.staged_uploads", "batch.staged_fetches")
+STRIP = ("strip.strips", "strip.scenes")
 
 
 @pytest.fixture(autouse=True)
@@ -175,6 +178,55 @@ def test_cap_misses_count_the_batches_past_the_fetch_cap(order, misses):
     assert profiling.counters()["pipeline.cap_misses"] - before == misses
 
 
+def _dem_strips(mode, seed=7, h=184, w=32, device="cpu"):
+    """An int16 scene (smooth land, a sea at the type's minimum over its left
+    quarter) at the step 4 through StripEncoder at strip_rows 16, pushed 16
+    rows at a time: 11 whole strips, then the flush of the last 8 rows, as a
+    6000-row scene pushed in 512-row pieces makes 11 strips and one of 368."""
+    rng = np.random.default_rng(seed)
+    img = (np.cumsum(rng.integers(-3, 4, (h, w, 1)), axis=1) + 500).astype(np.int16)
+    img[:, : w // 4] = np.iinfo(np.int16).min
+    se = strip.StripEncoder(w, h, 1, DType.I16, mode=mode, quanta=4, strip_rows=16,
+                            device=device)
+    for y in range(0, h, 16):
+        se.push(img[y: y + 16])
+    return se.finish()
+
+
+@pytest.mark.parametrize("mode", [Mode.CF_RLE_H, Mode.CF_H])
+def test_strip_spans_nest_under_push_and_finish(mode):
+    """Off: no record, and the counters still count.  On: the same stream; a
+    strip.push a push, each holding its strip's strip.quantize and
+    strip.encode; strip.finish holding strip.stitch and, in the RLE mode
+    alone, finish.rle0; 12 strips and one scene counted."""
+    before = profiling.counters()
+    off = _dem_strips(mode)
+    assert profiling.records() == []
+    mid = profiling.counters()
+    assert {k: mid[k] - before[k] for k in STRIP} == {"strip.strips": 12, "strip.scenes": 1}
+    profiling.enable()
+    assert _dem_strips(mode) == off
+    assert container.parse_headers(off).mode == mode  # the RLE0 pass was taken
+    after = profiling.counters()
+    assert {k: after[k] - mid[k] for k in STRIP} == {"strip.strips": 12, "strip.scenes": 1}
+    by = {}
+    for r in profiling.records():
+        by.setdefault(r["name"], []).append(r)
+    rle = ["finish.rle0"] if mode == Mode.CF_RLE_H else []
+    assert {k: len(v) for k, v in by.items()} == {
+        "strip.push": 12, "strip.quantize": 12, "strip.encode": 12, "strip.finish": 1,
+        "strip.stitch": 1, **{k: 1 for k in rle}}
+    pushes = [r["id"] for r in by["strip.push"]]
+    for name in ("strip.quantize", "strip.encode"):
+        assert [r["parent"] for r in by[name]] == pushes
+    (fin,) = by["strip.finish"]
+    assert fin["parent"] is None and all(r["parent"] is None for r in by["strip.push"])
+    for name in ["strip.stitch", *rle]:
+        assert by[name][0]["parent"] == fin["id"]
+    for r in (r for rs in by.values() for r in rs):
+        assert r["device_ms"] is None and r["host_ms"] >= 0
+
+
 def test_trace_writes_qb3_ranges(tmp_path):
     with profiling.trace(str(tmp_path)):
         _ftl_ic("cpu", 3)
@@ -226,7 +278,7 @@ def test_counters_hold_every_wrappers_launches(monkeypatch):
     c = profiling.counters()
     assert {name: c[name] for _, name in found} == \
         {name: 100 + k for k, (_, name) in enumerate(found)}
-    assert set(c) == {name for _, name in found} | {"pipeline.cap_misses", *STAGED}
+    assert set(c) == {name for _, name in found} | {"pipeline.cap_misses", *STAGED, *STRIP}
 
 
 def test_ring_keeps_the_newest_spans_up_to_its_bound(monkeypatch):
@@ -292,3 +344,18 @@ def test_card_spans_have_device_times(cuda, path):
         else:
             assert r["device_ms"] is None
     assert max(r["device_ms"] for r in rs if r["name"] == "encode.phase_a") > 0
+
+
+def test_card_strip_spans_have_device_times(cuda):
+    """On the card: the strips' stream equals the CPU's with the tracer on;
+    strip.encode and strip.stitch carry device ms, the host stages none."""
+    cpu = _dem_strips(Mode.CF_RLE_H)
+    profiling.enable()
+    assert _dem_strips(Mode.CF_RLE_H, device=cuda) == cpu
+    rs = profiling.records()
+    assert {r["name"] for r in rs} == {"strip.push", "strip.quantize", "strip.encode",
+                                       "strip.finish", "strip.stitch", "finish.rle0"}
+    for r in rs:
+        on_card = r["name"] in ("strip.encode", "strip.stitch")
+        assert (r["device_ms"] is not None) == on_card
+        assert not on_card or r["device_ms"] > 0

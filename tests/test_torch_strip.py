@@ -4,6 +4,10 @@ encode, over tests/test_strip.py's fast-mode cases and the "ix" and "ic"
 sidecars (the strips stitched by stitch_words_device, K6's twin here), and
 StripDecoder's rows, `failed` behaviour and exceptions against qb3_tpu's
 StripDecoder, with the port's walk pinned to its C++ and to its Python walk.
+Where a case lies inside what the benchmark's plain reference writes
+(portbench/reference/qb3ref.py, NumPy from the format, independent of both
+packages), the bytes equal its stream too, and every stream decodes, whole
+and strip by strip, to the raster or to the reference's dequantized raster.
 Inputs are made with numpy from a seed; the tolerance is zero.
 """
 
@@ -19,6 +23,8 @@ from qb3_tpu_torch.constants import Mode, is_best_mode
 from qb3_tpu_torch.errors import QB3DataError, QB3ShapeError
 from qb3_tpu_torch.ops.place_cuda import place_slabs
 
+from portbench.reference import qb3ref
+
 from . import corpus
 
 CPU = "cpu"
@@ -27,6 +33,15 @@ CPU = "cpu"
 def _nodata(img):
     img = img.copy()
     img[4: img.shape[0] - 4, 8:40] = 0  # zero runs for the RLE0 pass
+    return img
+
+
+def _dem(h, w, seed):
+    """An int16 elevation raster: smooth land from 0 to ~4300 m and a sea at
+    the type's minimum (SRTM's void and sea value) over a block of its left
+    side."""
+    img = corpus.natural8(h, w, 1, seed=seed).astype(np.int16) * 17
+    img[h // 4:, : w // 3] = np.iinfo(np.int16).min
     return img
 
 
@@ -60,6 +75,14 @@ ENCODE_CASES = {
                    [36], 8, {"with_index": True}),
     "u32-unaligned-tail": (lambda: headline_image(23, 20, 1, seed=102, dtype=np.uint32),
                            Mode.FTL, [23], 8, {}),
+    # the DEM ingest: int16 with a sea at -32768, the step 4, ties toward zero
+    "i16-dem-q4-cf-rle-h": (lambda: _dem(64, 48, 110), Mode.CF_RLE_H, [16, 16, 32], 16,
+                            {"quanta": 4}),
+    "i16-dem-200x96-cf-rle-h": (lambda: _dem(96, 200, 111), Mode.CF_RLE_H, [32, 64], 32,
+                                {"quanta": 4}),
+    "i16-dem-strip16-partial": (lambda: _dem(88, 40, 112), Mode.CF_RLE_H, [7, 30, 19, 24, 8],
+                                16, {"quanta": 4}),
+    "i16-dem-q4-cf-h": (lambda: _dem(64, 48, 113), Mode.CF_H, [64], 16, {"quanta": 4}),
 }
 
 
@@ -92,6 +115,21 @@ def _whole(img, mode, with_index=False, quanta=1, away=False, coreband=None,
     return e.encode(img)
 
 
+def _reference(img, mode, kw):
+    """The plain reference's stream of a case, or None where the case lies
+    outside what it writes: 8- and 16-bit rasters with sides multiples of 4,
+    FTL, BASE_H, CF_H and their RLE0 forms, the default core bands, no
+    sidecar or "ic" in chunks of its k."""
+    index = kw.get("with_index") or None
+    if (img.dtype not in qb3ref.DTYPES or img.shape[0] % 4 or img.shape[1] % 4
+            or mode not in qb3ref.MODES.values() or index not in (None, "ic")
+            or kw.get("coreband") is not None
+            or kw.get("index_chunk_blocks", 0) not in (0, qb3ref.IC_K)):
+        return None
+    return qb3ref.encode(img, mode, index, quanta=kw.get("quanta", 1),
+                         away=kw.get("away", False))
+
+
 @pytest.mark.parametrize("name", list(ENCODE_CASES))
 def test_strip_encode_equals_qb3_tpu_and_whole(name):
     make, mode, pieces, strip_rows, kw = ENCODE_CASES[name]
@@ -99,14 +137,29 @@ def test_strip_encode_equals_qb3_tpu_and_whole(name):
     got = _port_strips(img, mode, pieces, strip_rows, **kw)
     assert got == _stream_in_pieces(qb3_tpu.StripEncoder, img, mode, pieces, strip_rows, **kw)
     assert got == _whole(img, mode, **kw)
+    ref = _reference(img, mode, kw)
+    assert ref is not None or not name.startswith("i16-dem")
+    assert ref is None or got == ref
     info = container.parse_headers(got)
     assert info.mode == mode and info.mode != Mode.STORED
     index = kw.get("with_index")
     assert (info.index is not None) == (index is True)
     assert (info.index_chunked is not None) == (index == "ic")
-    out, _ = qt.decode(got, device=CPU)
-    if "quanta" not in kw:
-        np.testing.assert_array_equal(out, img)
+    q, away = kw.get("quanta", 1), kw.get("away", False)
+    want = img if q == 1 else qb3ref.dequantize(qb3ref.quantize(img, q, away), q)
+    outs = [qt.decode(got, device=CPU)[0]]
+    if img.shape[1] % 4 == 0:  # StripDecoder, as qb3_tpu's, reads no ragged width
+        sd = qt.StripDecoder(got, strip_rows=strip_rows, device=CPU)
+        rows = []
+        while (r := sd.read()) is not None:
+            rows.append(r)
+        outs.append(np.concatenate(rows))
+    for out in outs:
+        assert out.dtype == img.dtype
+        np.testing.assert_array_equal(out, want)
+        if np.issubdtype(img.dtype, np.signedinteger):  # the sea comes back exact
+            sea = img == np.iinfo(img.dtype).min
+            np.testing.assert_array_equal(out[sea], img[sea])
 
 
 def test_strip_encode_stitches_once_through_k6_twin(monkeypatch):
