@@ -30,7 +30,10 @@ on P1-P7.  Phases, each printed on earlier lines:
   3. K9 (the fast phase A in one launch) at one u8 512x512x3 tile and 128
      of them, its outputs compared field by field, K10 (the best phase A in
      one launch) at a Landsat pass of 8 tiles, one u8 tile and the u64
-     1024x1024x1 raster the same way, then K1 (pack, on K9's
+     1024x1024x1 raster the same way, K11 (the step of a quantized
+     encode) at the DEM cell's i16 512x6000x1 and 368x6000x1 strips at
+     q 4 against api.quantize on the host (also with the L2 cache flushed
+     before each call), then K1 (pack, on K9's
      outputs), K3 (window copy) and K2 (chunk walk) at the "ic" path's
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
@@ -102,7 +105,11 @@ on P1-P7.  Phases, each printed on earlier lines:
      (one K1, one K7 and one K5a launch, peak device memory) and the u16
      elevation raster through the best StripEncoder / StripDecoder (equal to
      the whole-image encode, K1 a strip, K6's stitch entry once, K7 + K5b
-     a strip read, peak device memory); the Landsat sample's decode
+     a strip read, peak device memory); the DEM cell's encode, a
+     6000x6000x1 int16 scene through the CF_RLE_H StripEncoder at q 4 in
+     512-row strips (12 K11 launches, twins refused, the payload equal to
+     the host quantizer's route, host-to-host MB/s of both); the Landsat
+     sample's decode
      host to host, split the same way, with a device profile; the probes'
      path with all seven names, in this process (launch counts) and as
      `python -m qb3_tpu_torch.probes` (an OK line per probe);
@@ -175,6 +182,8 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
                      "none: XLA ops (qb3_tpu/ops/encode.py encode_fast_blocks)"),
     "phase_a_best": ("qb3_tpu_torch/csrc/phase_a_best.cu",
                      "none: XLA ops (qb3_tpu/ops/encode_best.py encode_best_blocks)"),
+    "quantize_carrier": ("qb3_tpu_torch/csrc/quantize.cu",
+                         "none: host NumPy (qb3_tpu/api.py quantize)"),
     "probe_dim0_dot": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:24"),
     "probe_1d_dma": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:49"),
     "probe_flatten": ("qb3_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:62"),
@@ -188,6 +197,9 @@ KERNELS = {  # name -> (source in the repo, file:line of the TPU kernel's pallas
 BEST_K1 = {"pack_groups_chunked best S=27": "u8 512x512x3",
            "pack_groups_chunked best S=43": "u64 1024x1024x1"}
 STRIP_ROWS = 256  # rows a strip encodes and a strip read returns (phase 5)
+# the DEM cell's scene (portbench/configs/srtm90-i16-cfrle-q4.json): int16
+# rows x columns, encoded at the step DEM_Q in strips of DEM_ROWS rows
+DEM_SIDE, DEM_ROWS, DEM_Q = 6000, 512, 4
 # phase 6: tiles a batch of bench.py's pipelined row (bench.py:381) and of
 # its bulk foreign row (bench.py:266), 4 batches each
 ROW_TILES, FOREIGN_TILES = 32, 24
@@ -205,6 +217,9 @@ FLOOR_MS = 0.0  # the launch floor, measured in phase 2 (launch_floor)
 # swap, advance) 8; a group's prefix or codeswitch and start bit 6.  Codes
 # of u32 and u64 values pass 32 bits and take twice as many.
 CODE_OPS, PLACE_OPS, DECODE_OPS, GROUP_OPS = 5, 3, 8, 6
+# quantize one value at a step (the quotient, the remainder's tie test and
+# its rounding, the unsigned twin's mask) 6
+QUANT_OPS = 6
 # bytes of one K1 input code: u8 codes reach 9 bits, u16 17, u32 33; the
 # 65th bit of a u64 code is a symbol of its own
 CODE_BYTES = {8: 2, 16: 4, 32: 8, 64: 8}
@@ -599,6 +614,100 @@ def k10_phase(dev, card, img) -> dict:
         results.setdefault("phase_a_best", (0, t["ms"], plain, need, None, t["busy_ms"], None))
         del args
     return results
+
+
+def dem_scene():
+    """One scene of the DEM cell: DEM_SIDE x DEM_SIDE x 1 int16 seeded
+    terrain with a quarter sea at -32768 (portbench/rasters/srtm.py)."""
+    from portbench.rasters import srtm
+
+    return srtm.scene(DEM_SIDE, DEM_SIDE, np.random.default_rng(3011))
+
+
+def k11_phase(dev, card, scene) -> dict:
+    """Phase 3: K11 (the step of a quantized encode and the widening to the
+    int64 carrier, in one pass) against its twin (api.quantize on the host,
+    then the widening) at the DEM cell's two strip shapes, the scene's
+    first DEM_ROWS rows and its last 368, at the step DEM_Q with ties toward
+    zero: equal outputs; its times, which must be the kernel alone a call,
+    again with the L2 cache flushed before each call (a strip's values and
+    carriers, 31 MB, fit in the 50 MB L2 and repeated calls read them
+    warm), the twin's median and the bound (each value read at 2 bytes and
+    its carrier written at 8)."""
+    import torch
+
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.ops.quantize_cuda import quantize_carrier, quantize_carrier_plain
+
+    res = {}
+    tail = DEM_SIDE % DEM_ROWS
+    for rows in (scene[:DEM_ROWS], scene[-tail:]):
+        label = "i16 {}x{}x{}".format(*rows.shape)
+        host = torch.from_numpy(np.ascontiguousarray(rows))
+        values = host.to(dev)
+        before = quantize_carrier.launches
+        got = quantize_carrier(values, 16, True, DEM_Q, False)
+        check(quantize_carrier.launches == before + 1, f"K11 {label}: not one launch")
+        err = compare("quantize_carrier", got.cpu(),
+                      quantize_carrier_plain(host, 16, True, DEM_Q, False))
+        call = lambda: quantize_carrier(values, 16, True, DEM_Q, False)  # noqa: E731
+        t = launch_times(call, "quantize_kernel")
+        check_one_launch(f"K11 {label}", t, "quantize_kernel", memset=False)
+        cold = cold_l2_times(call, "quantize_kernel", t["names"])
+        plain = median_ms(lambda: quantize_carrier_plain(host, 16, True, DEM_Q, False), 5)
+        need = (rows.size * (2 + 8), rows.size * QUANT_OPS)
+        bms, by = bound(need)
+        log(f"K11 quantize_carrier {label} q {DEM_Q}: equal to the twin; "
+            f"{pack_times_text(t)}; {cold_text(cold)}; twin (host NumPy) {plain:.4f} ms; "
+            f"bound {bms:.5f} ms by {by} ({need[0]} bytes, {need[1]} operations), "
+            f"{100 * bms / t['device_ms']:.1f}% of it warm, "
+            f"{100 * bms / cold['device_ms']:.1f}% cold ({card})")
+        # the kernels line keeps the full strip's times
+        res.setdefault("quantize_carrier", (err, t["ms"], plain, need, None, t["busy_ms"], None))
+        del values, got
+    return res
+
+
+def dem_phase(dev, card, kernels, scene) -> int:
+    """Phase 5, the DEM cell's encode: the scene through StripEncoder
+    (CF_RLE_H, the step DEM_Q, ties toward zero) in pushes of DEM_ROWS rows,
+    the launch counts set to 0 just before and read just after, every twin
+    refused: K11 once a strip (12), its payload equal to that of the host
+    quantizer's route (api.quantize, then the same strip encode at step 1,
+    whose header differs in the step alone); host-to-host MB/s of both.
+    Returns K11's launches."""
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import api, container
+    from qb3_tpu_torch.api import DT_FROM_NP
+    from qb3_tpu_torch.benchutil import host_seconds
+    from qb3_tpu_torch.constants import Mode
+
+    def encode(x, q):
+        enc = qt.StripEncoder(DEM_SIDE, DEM_SIDE, 1, DT_FROM_NP[x.dtype], mode=Mode.CF_RLE_H,
+                              quanta=q, strip_rows=DEM_ROWS, device=dev)
+        for y in range(0, DEM_SIDE, DEM_ROWS):
+            enc.push(x[y: y + DEM_ROWS])
+        return enc.finish()
+
+    reset(kernels)
+    with no_twins():
+        stream = encode(scene, DEM_Q)
+    n = kernels["quantize_carrier"].launches
+    nstrips = -(-DEM_SIDE // DEM_ROWS)
+    check(n == nstrips, f"DEM strips: {n} K11 launches, want {nstrips}")
+    want = encode(api.quantize(scene, DEM_Q, False), 1)
+    info, plain = container.parse_headers(stream), container.parse_headers(want)
+    check(info.quanta == DEM_Q and plain.quanta == 1, "DEM strips: the headers' steps")
+    check(stream[info.data_offset:] == want[plain.data_offset:],
+          "DEM strips: the payload differs from the host quantizer's route")
+    mb = scene.nbytes / 1e6
+    t_k11 = host_seconds(lambda: encode(scene, DEM_Q))
+    t_host = host_seconds(lambda: encode(api.quantize(scene, DEM_Q, False), 1))
+    log(f"DEM strips (i16 {DEM_SIDE}x{DEM_SIDE}x1 CF_RLE_H q {DEM_Q}, {nstrips} strips of "
+        f"{DEM_ROWS} rows): K11 launches {n}; payload equal to the host quantizer's route "
+        f"({len(stream)} bytes); host to host {mb / t_k11:.2f} MB/s with K11, "
+        f"{mb / t_host:.2f} with api.quantize on the host ({card})")
+    return n
 
 
 def k1_best_cases(imgs: dict, dev):
@@ -1367,12 +1476,13 @@ def probe_main_path(kernels) -> dict:
 
 
 class no_twins:
-    """Within the block, the twins of K1-K10 raise if called: the path
+    """Within the block, the twins of K1-K11 raise if called: the path
     inside runs on the kernels alone."""
 
     def __enter__(self):
         from qb3_tpu_torch.ops import (chunkwalk_cuda, encode_cuda, fusedwin_cuda, gather_cuda,
-                                       pack_cuda, phase_a_cuda, place_cuda, wavefront_cuda)
+                                       pack_cuda, phase_a_cuda, place_cuda, quantize_cuda,
+                                       wavefront_cuda)
 
         def refuse(*_, **__):
             raise AssertionError("a twin ran on the card's path")
@@ -1383,7 +1493,7 @@ class no_twins:
             (pack_cuda, "extract_windows_plain"), (chunkwalk_cuda, "chunkwalk8_plain"),
             (fusedwin_cuda, "wavefront_fused_plain"), (encode_cuda, "encode_pack_image_plain"),
             (place_cuda, "place_slabs_plain"), (phase_a_cuda, "encode_fast_blocks"),
-            (phase_a_cuda, "encode_best_blocks"))]
+            (phase_a_cuda, "encode_best_blocks"), (quantize_cuda, "quantize_carrier_plain"))]
         for m, n, _ in self.saved:
             setattr(m, n, refuse)
 
@@ -2757,6 +2867,7 @@ def main() -> int:
     from qb3_tpu_torch.ops.pack_cuda import extract_windows, pack_groups_chunked
     from qb3_tpu_torch.ops.phase_a_cuda import phase_a_best, phase_a_fast
     from qb3_tpu_torch.ops.place_cuda import place_parts, place_slabs
+    from qb3_tpu_torch.ops.quantize_cuda import quantize_carrier
     from qb3_tpu_torch.ops.wavefront_cuda import wavefront8, wavefront_wide
 
     dev = torch.device("cuda")
@@ -2785,6 +2896,8 @@ def main() -> int:
     log("# phase 3: kernels against their twins")
     kres = k9_phase(dev, card, img, tiles)
     kres.update(k10_phase(dev, card, img))
+    scene = dem_scene()
+    kres.update(k11_phase(dev, card, scene))
     kres.update(kernel_phase(dev, card, img, tiles, u16))
     cases = ix_cases()
     ix_res, ix_streams = ix_kernel_phase(dev, card, cases)
@@ -2824,7 +2937,7 @@ def main() -> int:
                "wavefront_wide": wavefront_wide, "gather_slabs": gather_slabs,
                "encode_pack_image": encode_pack_image, "place_slabs": place_slabs,
                "place_parts": place_parts, "phase_a_fast": phase_a_fast,
-               "phase_a_best": phase_a_best,
+               "phase_a_best": phase_a_best, "quantize_carrier": quantize_carrier,
                **{f"probe_{n}": k for n, (k, _) in probes.KERNELS.items()}}
     landsat_pin(dev, card, kernels)
 
@@ -3029,6 +3142,8 @@ def main() -> int:
                                         scases["u16 4096x4096x1 BASE_H"][0])
     for k, n in best_launches.items():
         launches[k] = launches.get(k, 0) + n
+    launches["quantize_carrier"] = dem_phase(dev, card, kernels, scene)
+    del scene
     landsat_split(dev, card)
     launches.update(probe_main_path(kernels))
 

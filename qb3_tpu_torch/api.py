@@ -9,8 +9,9 @@
 
 Phase A (K9, and K10 in the best modes, ops/phase_a_cuda.py; on the CPU
 their twins in ops/encode.py and ops/encode_best.py) and the pack (K1) run
-on the given device; this module is the host-side
-orchestration: validation, quantization and small image repacking; the
+on the given device, and so does the step of a quantized encode (K11,
+ops/quantize_cuda.py; api.quantize on the CPU); this module is the
+host-side orchestration: validation and small image repacking; the
 sidecar, the header, the RLE0 post-pass and the stored fallback come from
 framing.py (qb3_encode, QB3encode.cpp:488-574).  u16/u32/u64 images whose
 sides are multiples of 4 take the image-layout phase A (ops/encode_image.py)
@@ -30,6 +31,8 @@ K5 on the device.
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -63,6 +66,7 @@ from .ops.encode_image import phase_a_image
 from .ops.fusedwin_cuda import ix_window_R
 from .ops.gather_cuda import gather_span
 from .ops.phase_a_cuda import phase_a_best, phase_a_fast
+from .ops.quantize_cuda import quantize_carrier
 
 NP_FROM_DT = {
     DType.U8: np.uint8, DType.I8: np.int8, DType.U16: np.uint16, DType.I16: np.int16,
@@ -367,16 +371,11 @@ class Encoder:
         if self.xsize * self.ysize <= B2:
             return self._frame().stored(src)
 
-        work = src
-        if self.quanta >= 2:
-            work = quantize(work, self.quanta, self.away)
-        uns = work.view(UNSIGNED[work.dtype.itemsize])
-
-        if self.xsize < B or self.ysize < B:
-            uns = repack_small(uns)
-
+        # the step is taken on the device (_carrier), after the repacking:
+        # the repacking only moves values, and its padding's zeros stay 0
+        raw = repack_small(src) if self.xsize < B or self.ysize < B else src
         payload, state, pieces = self._encode_payload(
-            uns, framing.RLE_BASE.get(self.mode, self.mode))
+            raw, framing.RLE_BASE.get(self.mode, self.mode))
         # entry_cf: the one-shot encode alone tries the best modes' "ic"
         # sidecar (qb3_tpu/api.py:346-352)
         side = framing.sidecar(self.with_index, **pieces, entry_runbits=self.band_runbits,
@@ -386,23 +385,37 @@ class Encoder:
             self._commit_state(state)
         return stream
 
-    def _encode_words(self, uns: np.ndarray, mode: Mode):
-        """Phase A and the pack of one (H, W, C) unsigned raster from the
-        persisted band state, on the device -> (the stream words used, a view
-        of the first ceil(total / 32) words on the device; total bits; the
-        exit (prev, runbits, cf or None) on the host; glen; rung, the
-        decoder-observable runbits after each block; in the best modes
-        (meta16, cfv, pcf_in) on the device, else None)."""
-        h, w, nb = uns.shape
-        size = uns.dtype.itemsize
+    def _carrier(self, raw: np.ndarray, span: str | None = None) -> torch.Tensor:
+        """The int64 carrier of one raster of the encoder's type on the
+        device, at its step.  At a step of 2 or more the values go to the
+        device as they are, and K11 (ops/quantize_cuda.quantize_carrier; its
+        twin on the CPU) quantizes and widens them there, inside the span
+        named `span` where one is given; at step 1, to_carrier."""
+        size = raw.dtype.itemsize
+        if self.quanta < 2:
+            return to_carrier(raw.view(UNSIGNED[size]), self.device)
+        values = put_on(self.device)(raw.view(_NP_SIGNED[size]))
+        signed = np.dtype(NP_FROM_DT[self.dtype]).kind == "i"
+        with profiling.span(span, device=self.device) if span else nullcontext():
+            return quantize_carrier(values, 8 * size, signed, self.quanta, self.away)
+
+    def _encode_words(self, x: torch.Tensor, mode: Mode):
+        """Phase A and the pack of one (H, W, C) raster's carrier at its step
+        (_carrier), from the persisted band state, on the device -> (the
+        stream words used, a view of the first ceil(total / 32) words on the
+        device; total bits; the exit (prev, runbits, cf or None) on the
+        host; glen; rung, the decoder-observable runbits after each block;
+        in the best modes (meta16, cfv, pcf_in) on the device, else None)."""
+        h, w, nb = x.shape
+        size = np.dtype(NP_FROM_DT[self.dtype]).itemsize
         tbits = size * 8
+        udt = UNSIGNED[size]
         n_words = stream_words(w, h, nb, self.dtype)
-        args = (to_carrier(uns, self.device),
-                to_carrier(self.band_prev.astype(uns.dtype), self.device),
+        args = (x, to_carrier(self.band_prev.astype(udt), self.device),
                 torch.from_numpy(self.band_runbits).to(self.device))
         order, cband = self.order or HILBERT, tuple(self.cband)
         if is_best_mode(mode):
-            cf = to_carrier(self.band_cf.astype(uns.dtype), self.device)
+            cf = to_carrier(self.band_cf.astype(udt), self.device)
             (words, total, xprev, xrun, xcf, glen, meta16, cfv, rung,
              pcf_in) = best_encode(*args, cf, order, cband, tbits, n_words)
             best, xcf = (meta16, cfv, pcf_in), from_carrier(xcf, size)
@@ -417,12 +430,12 @@ class Encoder:
         total = int(total)
         return words[: (total + 31) // 32], total, state, glen, rung, best
 
-    def _encode_payload(self, uns: np.ndarray, mode: Mode):
+    def _encode_payload(self, raw: np.ndarray, mode: Mode):
         """_encode_words' stream as bytes -> (payload, exit state, the
         sidecar's pieces on the host for framing.sidecar: glen and rung, in
         the best modes meta16, cfv and pcf_in too; none without a
         sidecar)."""
-        used, total, state, glen, rung, best = self._encode_words(uns, mode)
+        used, total, state, glen, rung, best = self._encode_words(self._carrier(raw), mode)
         pieces = {}
         if self.with_index:
             pieces = dict(glen=glen, rung=rung)

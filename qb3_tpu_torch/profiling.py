@@ -31,10 +31,11 @@ a pass's staging and copy), its fetch (``batch.fetch``) and its finish
 (``batch.finish``); inside ``batch.encode_finish`` the ``finish.sidecar``,
 ``finish.headers`` and ``finish.bytes`` passes.  The strip encoder
 (``strip.StripEncoder``) opens ``strip.push`` around each push, and inside
-it, for each strip the push completes, ``strip.quantize`` (the host
-quantizer, where the step is 2 or more) and ``strip.encode`` (the strip's
-upload, phase A, K1 and the blocking reads of its exit state and bit
-total, with device ms); its ``finish()`` is ``strip.finish``, around
+it, for each strip the push completes, ``strip.encode`` (the strip's
+upload, its step, phase A, K1 and the blocking reads of its exit state and
+bit total, with device ms), which holds ``strip.quantize`` where the step
+is 2 or more (K11's launch, with device ms; its twin on the CPU); the
+strip encoder's ``finish()`` is ``strip.finish``, around
 ``strip.stitch`` (K6's stitch of the strips' words, with device ms) and,
 in an RLE mode, ``finish.rle0`` (the RLE0 post-pass of
 ``framing.Frame.finish``).  A span records its name,

@@ -13,8 +13,9 @@ qb3_tpu/strip.py.
 
 The band state (prev value, rung history, previous CF) persists across
 strips, as in the reference's strip-wise sub-encoding of quantized images
-(QB3encode.cpp:405-455).  Each strip encodes on the device through the
-port's encode (phase A + K1, the best modes' phase A + K1, or the
+(QB3encode.cpp:405-455).  Each strip goes to the device at its native
+width and encodes there through the port's encode (at a step of 2 or more
+K11 quantizes it first; phase A + K1, the best modes' phase A + K1, or the
 image-layout phase A + K8 where api.takes_fused says so); its words stay on
 the device, trimmed to the strip's bit total, and finish() stitches them
 once with K6 (stitch.stitch_words_device) and copies the stream to the host
@@ -35,8 +36,8 @@ import numpy as np
 import torch
 
 from . import container, framing, profiling, rle
-from .api import (NP_FROM_DT, UNSIGNED, Decoder, Encoder, dequantize, from_carrier,
-                  group_inputs, padded_words, quantize, walk_offsets)
+from .api import (NP_FROM_DT, Decoder, Encoder, dequantize, from_carrier, group_inputs,
+                  padded_words, walk_offsets)
 from .constants import B, B2, HILBERT, DType, Mode, needs_rle
 from .offsets import KIND_CF, KIND_CF0
 from .errors import QB3DataError, QB3ShapeError
@@ -118,13 +119,9 @@ class StripEncoder:
 
     def _encode_strip(self, strip: np.ndarray):
         e = self._enc
-        work = strip
-        if e.quanta >= 2:
-            with profiling.span("strip.quantize"):
-                work = quantize(work, e.quanta, e.away)
-        uns = work.view(UNSIGNED[work.dtype.itemsize])
         with profiling.span("strip.encode", device=e.device):
-            used, total, state, glen, rung, best = e._encode_words(uns, self.mode)
+            x = e._carrier(strip, "strip.quantize")
+            used, total, state, glen, rung, best = e._encode_words(x, self.mode)
             e._commit_state(state)
             self._parts.append(used.clone())  # the copy frees the worst-case buffer
         self._totals.append(total)

@@ -6,8 +6,11 @@ and IDX groups and the edge inputs of tests/k5_edges.py included), K6
 also on the edge inputs of tests/pack_edges.py, and on the batch, pipelined
 and one-image encodes with its twin refused), K10 (the best phase A, also
 on the edge inputs of tests/best_edges.py and the Landsat sample, and on
-the Landsat batch and the one-image best encodes with its twin refused)
-and P1-P7 (the Mosaic probes) of
+the Landsat batch and the one-image best encodes with its twin refused),
+K11 (the step of a quantized encode, against api.quantize on the grid of
+tests/quantize_edges.py, aligned and not, on a DEM strip and ragged
+lengths, and on a 6000x6000 DEM scene through the strip encoder against
+the plain reference) and P1-P7 (the Mosaic probes) of
 qb3_tpu_torch against their plain PyTorch twins (K1 also at the best modes'
 symbol counts), and the public decode (best-mode streams included), the
 best modes' phase A, encode, batches and strips and the strips on the card
@@ -35,7 +38,7 @@ import torch
 import qb3_tpu_torch as qt
 from qb3_tpu_torch import benchutil, container, foreign, pipeline, probes
 from qb3_tpu_torch.api import (_fused_ix_params, default_cband, ic_inputs, padded_words,
-                               stream_words, to_carrier)
+                               quantize, stream_words, to_carrier)
 from qb3_tpu_torch.batch import _flat_tile_layout
 from qb3_tpu_torch.benchutil import LANDSAT_SAMPLE, device_profile, headline_image
 from qb3_tpu_torch.constants import HILBERT, TYPESIZES, ZCURVE, Mode, is_best_mode
@@ -54,12 +57,16 @@ from qb3_tpu_torch.ops import phase_a_cuda
 from qb3_tpu_torch.ops.encode_best import encode_best_blocks
 from qb3_tpu_torch.ops.phase_a_cuda import phase_a_best, phase_a_fast
 from qb3_tpu_torch.ops.place_cuda import place_parts, place_slabs, place_slabs_plain
+from qb3_tpu_torch.ops.quantize_cuda import quantize_carrier
 from qb3_tpu_torch.stitch import stitch_words, stitch_words_device
 from qb3_tpu_torch.ops.wavefront_cuda import (wavefront8, wavefront8_plain, wavefront_wide,
                                               wavefront_wide_plain)
 from qb3_tpu_torch.parallel import sharded
 
-from . import best_edges, k5_edges, p1_cases, pack_edges, walk_edges
+from portbench.rasters import srtm
+from portbench.reference import qb3ref
+
+from . import best_edges, k5_edges, p1_cases, pack_edges, quantize_edges, walk_edges
 from .stitch_cases import STITCH_CASES, stitch_parts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -831,6 +838,69 @@ def test_one_image_best_encodes_go_through_k10(cuda, monkeypatch, dtype):
     se.push(img[h // 2:])
     assert se.finish() == want[0]
     assert phase_a_best.launches == before + len(cases) + 2
+
+
+# ------------------------------------------------ K11 (ops/quantize_cuda.py)
+
+def _k11_equal(arr: np.ndarray, q: int, away: bool, dev, offset: int = 0):
+    """K11 (one launch) on the values of arr against api.quantize and the
+    widening on the host, every value, tolerance zero.  offset > 0 reads
+    them from that many elements into a larger tensor, a pointer off 16
+    bytes: the scalar loop alone."""
+    bits = np.iinfo(arr.dtype).bits
+    pad = np.zeros(offset, arr.dtype)
+    values = torch.from_numpy(quantize_edges.signed_view(np.concatenate([pad, arr])))
+    values = values.to(dev)[offset:]
+    before = quantize_carrier.launches
+    got = quantize_carrier(values, bits, np.iinfo(arr.dtype).min < 0, q, away)
+    torch.cuda.synchronize()
+    assert quantize_carrier.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.int64 and got.shape == values.shape
+    want = to_carrier(quantize(arr, q, away).view(np.dtype(f"u{bits // 8}")), "cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("name", list(quantize_edges.CASES))
+def test_k11_matches_quantize(cuda, name, offset):
+    """Every type, the steps 2, 3, 4, 5, 7, 255 and the type's largest,
+    both roundings, on tests/quantize_edges.py's edge values (the type's
+    ends, 0, -32768, k*q +- 1, ties, u64 values above 2^63) and random bit
+    patterns."""
+    dtype, q, away = quantize_edges.CASES[name]
+    _k11_equal(quantize_edges.values(dtype, q, seed=1100), q, away, cuda, offset)
+
+
+@pytest.mark.parametrize("dtype,n,q,away", [
+    (np.int16, 512 * 6000, 4, False),   # the DEM cell's strip
+    (np.int16, 512 * 6000 + 5, 7, True),  # a ragged tail of 5 after the vectors
+    (np.uint8, 1000015, 4, True),       # 15 past the last 16-value vector
+    (np.uint64, 100001, 3, False),
+], ids=["i16-strip-512x6000", "i16-ragged", "u8-ragged", "u64-ragged"])
+def test_k11_strip_and_ragged_lengths_match_quantize(cuda, dtype, n, q, away):
+    rng = np.random.default_rng(1101)
+    if dtype == np.int16:  # DEM-like: metres, a quarter of the values the sea's -32768
+        arr = rng.integers(-500, 9000, n).astype(np.int16)
+        arr[rng.random(n) < 0.25] = np.iinfo(np.int16).min
+    else:
+        arr = rng.integers(0, 1 << 64, n, dtype=np.uint64, endpoint=False).astype(dtype)
+    _k11_equal(arr, q, away, cuda)
+
+
+def test_dem_scene_strips_go_through_k11(cuda):
+    """A 6000x6000 int16 DEM scene (portbench's synthetic terrain) at the
+    step 4 through StripEncoder in 512-row strips, pushed 512 rows at a
+    time, on the card: K11 launched once a strip (12), and the stream equal
+    to the plain reference's, which quantizes on the host (qb3ref)."""
+    scene = srtm.scene(6000, 6000, np.random.default_rng(1102))
+    before = quantize_carrier.launches
+    se = qt.StripEncoder(6000, 6000, 1, qt.DType.I16, mode=Mode.CF_RLE_H, quanta=4,
+                         strip_rows=512, device=cuda)
+    for y in range(0, 6000, 512):
+        se.push(scene[y:y + 512])
+    stream = se.finish()
+    assert quantize_carrier.launches == before + 12
+    assert stream == qb3ref.encode(scene, qb3ref.CF_RLE_H, quanta=4)
 
 
 def test_k7_matches_twin(cuda):

@@ -131,9 +131,10 @@ def test_kernels_bind_once_at_first_launch():
     CUDA error raises with its name, and 0 passes."""
     code = ("import qb3_tpu_torch.probes; from qb3_tpu_torch import _build; "
             "from qb3_tpu_torch.ops import (chunkwalk_cuda, encode_cuda, fusedwin_cuda, "
-            "gather_cuda, pack_cuda, phase_a_cuda, place_cuda, probe_cuda, wavefront_cuda); "
+            "gather_cuda, pack_cuda, phase_a_cuda, place_cuda, probe_cuda, quantize_cuda, "
+            "wavefront_cuda); "
             "ks = [v for m in (chunkwalk_cuda, encode_cuda, fusedwin_cuda, gather_cuda, "
-            "pack_cuda, phase_a_cuda, place_cuda, probe_cuda, wavefront_cuda) "
+            "pack_cuda, phase_a_cuda, place_cuda, probe_cuda, quantize_cuda, wavefront_cuda) "
             "for v in vars(m).values() "
             "if isinstance(v, _build.Kernel)]; "
             "assert sorted(k.name for k in ks) == sorted(_build.SIGNATURES), ks; "

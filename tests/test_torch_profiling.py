@@ -7,7 +7,8 @@ profile; profiler_us against a record_function marker; counters() with
 every kernel wrapper's launches, the pipeline's fetch-cap misses and the
 batch encode's staged copies, which the CPU never counts; the strip
 encoder's spans, nested under each push and its finish (the RLE0 pass only
-in an RLE mode), and its strips and scenes counted.
+in an RLE mode; the step's span, around K11's wrapper, only at a step of 2
+or more), and its strips and scenes counted.
 
 The card's part (device times, the streams on the card) skips without a
 CUDA device.  This file imports neither jax nor qb3_tpu:
@@ -28,8 +29,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from qb3_tpu_torch import batch, container, pipeline, profiling, strip
+from qb3_tpu_torch import api, batch, container, pipeline, profiling, strip
 from qb3_tpu_torch.constants import DType, Mode
+from qb3_tpu_torch.ops.quantize_cuda import quantize_carrier
 
 OPS = os.path.join(os.path.dirname(os.path.abspath(profiling.__file__)), "ops")
 FINISH = ("finish.sidecar", "finish.headers", "finish.bytes")
@@ -178,7 +180,7 @@ def test_cap_misses_count_the_batches_past_the_fetch_cap(order, misses):
     assert profiling.counters()["pipeline.cap_misses"] - before == misses
 
 
-def _dem_strips(mode, seed=7, h=184, w=32, device="cpu"):
+def _dem_strips(mode, seed=7, h=184, w=32, device="cpu", quanta=4):
     """An int16 scene (smooth land, a sea at the type's minimum over its left
     quarter) at the step 4 through StripEncoder at strip_rows 16, pushed 16
     rows at a time: 11 whole strips, then the flush of the last 8 rows, as a
@@ -186,7 +188,7 @@ def _dem_strips(mode, seed=7, h=184, w=32, device="cpu"):
     rng = np.random.default_rng(seed)
     img = (np.cumsum(rng.integers(-3, 4, (h, w, 1)), axis=1) + 500).astype(np.int16)
     img[:, : w // 4] = np.iinfo(np.int16).min
-    se = strip.StripEncoder(w, h, 1, DType.I16, mode=mode, quanta=4, strip_rows=16,
+    se = strip.StripEncoder(w, h, 1, DType.I16, mode=mode, quanta=quanta, strip_rows=16,
                             device=device)
     for y in range(0, h, 16):
         se.push(img[y: y + 16])
@@ -196,9 +198,10 @@ def _dem_strips(mode, seed=7, h=184, w=32, device="cpu"):
 @pytest.mark.parametrize("mode", [Mode.CF_RLE_H, Mode.CF_H])
 def test_strip_spans_nest_under_push_and_finish(mode):
     """Off: no record, and the counters still count.  On: the same stream; a
-    strip.push a push, each holding its strip's strip.quantize and
-    strip.encode; strip.finish holding strip.stitch and, in the RLE mode
-    alone, finish.rle0; 12 strips and one scene counted."""
+    strip.push a push, each holding its strip's strip.encode, which holds
+    the strip's strip.quantize (K11's launch, its twin here); strip.finish
+    holding strip.stitch and, in the RLE mode alone, finish.rle0; 12 strips
+    and one scene counted."""
     before = profiling.counters()
     off = _dem_strips(mode)
     assert profiling.records() == []
@@ -217,14 +220,38 @@ def test_strip_spans_nest_under_push_and_finish(mode):
         "strip.push": 12, "strip.quantize": 12, "strip.encode": 12, "strip.finish": 1,
         "strip.stitch": 1, **{k: 1 for k in rle}}
     pushes = [r["id"] for r in by["strip.push"]]
-    for name in ("strip.quantize", "strip.encode"):
-        assert [r["parent"] for r in by[name]] == pushes
+    assert [r["parent"] for r in by["strip.encode"]] == pushes
+    assert [r["parent"] for r in by["strip.quantize"]] == [r["id"] for r in by["strip.encode"]]
     (fin,) = by["strip.finish"]
     assert fin["parent"] is None and all(r["parent"] is None for r in by["strip.push"])
     for name in ["strip.stitch", *rle]:
         assert by[name][0]["parent"] == fin["id"]
     for r in (r for rs in by.values() for r in rs):
         assert r["device_ms"] is None and r["host_ms"] >= 0
+
+
+@pytest.mark.parametrize("quanta", [1, 4])
+def test_strips_quantize_through_k11s_wrapper_at_a_step(monkeypatch, quanta):
+    """At the step 4 each strip hands its values to K11's wrapper once,
+    inside its strip.quantize span, with the raster's type (16 bits,
+    signed) and the step; at step 1 neither the wrapper nor the span is
+    reached.  The CPU launches no kernel."""
+    seen = []
+
+    def k11(*a, **k):
+        seen.append(a[1:])
+        return quantize_carrier(*a, **k)
+
+    monkeypatch.setattr(api, "quantize_carrier", k11)
+    launches = quantize_carrier.launches
+    profiling.enable()
+    _dem_strips(Mode.CF_RLE_H, quanta=quanta)
+    names = [r["name"] for r in profiling.records()]
+    assert quantize_carrier.launches == launches
+    if quanta == 1:
+        assert seen == [] and "strip.quantize" not in names
+    else:
+        assert seen == [(16, True, 4, False)] * 12 and names.count("strip.quantize") == 12
 
 
 def test_trace_writes_qb3_ranges(tmp_path):
@@ -348,14 +375,17 @@ def test_card_spans_have_device_times(cuda, path):
 
 def test_card_strip_spans_have_device_times(cuda):
     """On the card: the strips' stream equals the CPU's with the tracer on;
-    strip.encode and strip.stitch carry device ms, the host stages none."""
+    strip.quantize (K11, launched once a strip), strip.encode and
+    strip.stitch carry device ms, the host stages none."""
     cpu = _dem_strips(Mode.CF_RLE_H)
     profiling.enable()
+    launches = quantize_carrier.launches
     assert _dem_strips(Mode.CF_RLE_H, device=cuda) == cpu
+    assert quantize_carrier.launches == launches + 12
     rs = profiling.records()
     assert {r["name"] for r in rs} == {"strip.push", "strip.quantize", "strip.encode",
                                        "strip.finish", "strip.stitch", "finish.rle0"}
     for r in rs:
-        on_card = r["name"] in ("strip.encode", "strip.stitch")
+        on_card = r["name"] in ("strip.quantize", "strip.encode", "strip.stitch")
         assert (r["device_ms"] is not None) == on_card
         assert not on_card or r["device_ms"] > 0
