@@ -37,7 +37,8 @@ on P1-P7.  Phases, each printed on earlier lines:
      outputs), K3 (window copy) and K2 (chunk walk) at the "ic" path's
      shapes, then K4 (fused "ix" walk, both modes), K5a and K5b (walks on
      gathered windows) at the "ix" shapes, then K8 (fused image-layout VLC
-     + pack) at the wide shapes, FTL and BASE, then K7 (window gather) at
+     + pack) at the wide shapes, FTL and BASE, and at the photo cell's u16
+     512x7216x3 and 292x7216x3 strips (FTL), then K7 (window gather) at
      the walk's u8 512x512x3 and u64 1024x1024x1 windows and the 128-tile
      best batch's "ib" windows, then (3d) K5a and
      K5b at every other launch shape: best-mode kinds (CF, CF0, IDX; the
@@ -108,8 +109,13 @@ on P1-P7.  Phases, each printed on earlier lines:
      a strip read, peak device memory); the DEM cell's encode, a
      6000x6000x1 int16 scene through the CF_RLE_H StripEncoder at q 4 in
      512-row strips (12 K11 launches, twins refused, the payload equal to
-     the host quantizer's route, host-to-host MB/s of both); the Landsat
-     sample's decode
+     the host quantizer's route, host-to-host MB/s of both); the photo
+     cell's encode, a 7216x5412x3 u16 image through the FTL StripEncoder in
+     512-row strips (11 K8 launches, K6's stitch entry once, no K9 or K1,
+     twins refused), equal to the one-shot encode's stream and to the
+     plain reference's (portbench/reference/qb3ref.py), decoded on the card
+     (K7 + K5b) to the image, with each run's peak device memory and time
+     and host-to-host MB/s of the strips; the Landsat sample's decode
      host to host, split the same way, with a device profile; the probes'
      path with all seven names, in this process (launch counts) and as
      `python -m qb3_tpu_torch.probes` (an OK line per probe);
@@ -134,13 +140,14 @@ on P1-P7.  Phases, each printed on earlier lines:
 
 Launch counts are set to 0 just before each main path and read just after,
 every twin refused in phases 6 and 7; each kernel's count in the result is
-from the paths that run it, summed over the "ix", walk, strip, best,
+from the paths that run it, summed over the "ix", walk, strip, best, photo,
 serving and sharded paths.  The line
 also holds K1 at the best modes' symbol counts as two entries of their own
 (BEST_K1), their launches counted on the best paths, and K6's stitch
 entry ("place_slabs stitch", counted by place_parts.launches and launched
 by every device stitch; the slab entry, place_slabs, is on no path and
-its count is 0).  Any
+its count is 0), and K8 at the photo cell's 512-row strip
+("encode_pack_image photo", its launches counted on the photo path).  Any
 failure exits non-zero and prints no result.  The line before the last is
 {"kernels": [...]} (each kernel's error, median ms, twin ms, bound ms, and
 a one-call PyTorch yardstick where one exists; device ms where a profile
@@ -200,6 +207,11 @@ STRIP_ROWS = 256  # rows a strip encodes and a strip read returns (phase 5)
 # the DEM cell's scene (portbench/configs/srtm90-i16-cfrle-q4.json): int16
 # rows x columns, encoded at the step DEM_Q in strips of DEM_ROWS rows
 DEM_SIDE, DEM_ROWS, DEM_Q = 6000, 512, 4
+# the photo cell's image (portbench/configs/rgb16-photo-ftl.json): uint16
+# rows x columns x 3, FTL in strips of PHOTO_ROWS rows; PHOTO_K8, the kernels
+# line's entry of K8 at its full strip
+PHOTO_H, PHOTO_W, PHOTO_ROWS = 5412, 7216, 512
+PHOTO_K8 = "encode_pack_image photo"
 # phase 6: tiles a batch of bench.py's pipelined row (bench.py:381) and of
 # its bulk foreign row (bench.py:266), 4 batches each
 ROW_TILES, FOREIGN_TILES = 32, 24
@@ -624,6 +636,14 @@ def dem_scene():
     return srtm.scene(DEM_SIDE, DEM_SIDE, np.random.default_rng(3011))
 
 
+def photo_image():
+    """One image of the photo cell: PHOTO_H x PHOTO_W x 3 uint16, a seeded
+    linear photograph (portbench/rasters/photo16.py)."""
+    from portbench.rasters import photo16
+
+    return photo16.image(PHOTO_H, PHOTO_W, np.random.default_rng(3101))
+
+
 def k11_phase(dev, card, scene) -> dict:
     """Phase 3: K11 (the step of a quantized encode and the widening to the
     int64 carrier, in one pass) against its twin (api.quantize on the host,
@@ -708,6 +728,81 @@ def dem_phase(dev, card, kernels, scene) -> int:
         f"({len(stream)} bytes); host to host {mb / t_k11:.2f} MB/s with K11, "
         f"{mb / t_host:.2f} with api.quantize on the host ({card})")
     return n
+
+
+def photo_phase(dev, card, kernels, photo) -> dict:
+    """Phase 5, the photo cell's encode, the launch counts set to 0 just
+    before and read just after, every twin refused: the image through
+    StripEncoder (FTL, the default core band) in pushes of PHOTO_ROWS rows,
+    K8 once a strip (11), K6's stitch entry once, neither K9 nor K1; the
+    one-shot encode of the image (api.encode, the image-layout encode of
+    the whole image: one more K8), equal to the strip stream; the decode of
+    the strip stream on the card (api.decode: the C++ walk, K7, K5b), equal
+    to the image.  Then the plain reference's FTL stream
+    (portbench/reference/qb3ref.py), equal to the strip stream.  Each run's
+    host seconds and peak device memory, and host-to-host MB/s of the strip
+    encode.  Returns the launch counts of the phase."""
+    import torch
+
+    import qb3_tpu_torch as qt
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.benchutil import host_seconds
+    from qb3_tpu_torch.constants import DType, Mode
+    from portbench.reference import qb3ref
+
+    def strips():
+        enc = qt.StripEncoder(PHOTO_W, PHOTO_H, 3, DType.U16, mode=Mode.FTL,
+                              strip_rows=PHOTO_ROWS, device=dev)
+        for y in range(0, PHOTO_H, PHOTO_ROWS):
+            enc.push(photo[y: y + PHOTO_ROWS])
+        return enc.finish()
+
+    def measured(fn):
+        """fn()'s result, host seconds and peak device bytes above what was
+        allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+    nstrips = -(-PHOTO_H // PHOTO_ROWS)
+    reset(kernels)
+    with no_twins():
+        stream, t_strip, peak_strip = measured(strips)
+        n = {k: kernels[k].launches for k in ("encode_pack_image", "place_parts",
+                                              "phase_a_fast", "pack_groups_chunked")}
+        check(n == {"encode_pack_image": nstrips, "place_parts": 1, "phase_a_fast": 0,
+                    "pack_groups_chunked": 0},
+              f"photo strips: launches {n}, want K8 {nstrips}, K6's stitch 1, no K9 or K1")
+        one, t_one, peak_one = measured(lambda: api.encode(photo, device=dev))
+        check(one == stream, "photo: the one-shot stream differs from the strip stream")
+        del one
+        torch.cuda.empty_cache()
+        (back, _), t_dec, peak_dec = measured(lambda: api.decode(stream, device=dev))
+        check(back.dtype == photo.dtype and np.array_equal(back, photo),
+              "photo: the card's decode differs from the image")
+        del back
+    launches = {k: f.launches for k, f in kernels.items() if f.launches}
+    check(launches["encode_pack_image"] == nstrips + 1 and launches.get("gather_slabs", 0) > 0
+          and launches.get("wavefront_wide", 0) > 0,
+          f"photo: launches {launches}, want K8 {nstrips + 1}, K7 and K5b")
+    t0 = time.perf_counter()
+    check(qb3ref.encode(photo, qb3ref.FTL) == stream,
+          "photo: the strip stream differs from the plain reference's")
+    t_ref = time.perf_counter() - t0
+    mb = photo.nbytes / 1e6
+    t_host = host_seconds(strips, 3)
+    log(f"photo strips (u16 {PHOTO_W}x{PHOTO_H}x3 FTL, {nstrips} strips of {PHOTO_ROWS} "
+        f"rows, {len(stream)} bytes, ratio {len(stream) / photo.nbytes:.4f}): launches "
+        f"{launches}; the strip stream equal to the one-shot encode's, the plain "
+        f"reference's ({t_ref:.1f} s on the host) and decoded on the card to the image; "
+        f"strips {t_strip:.3f} s (first run) at a peak of {peak_strip / 1e9:.2f} GB, "
+        f"host to host {mb / t_host:.2f} MB/s ({t_host:.4f} s); one-shot {t_one:.3f} s at "
+        f"{peak_one / 1e9:.2f} GB; decode {t_dec:.3f} s at {peak_dec / 1e9:.2f} GB ({card})")
+    return launches
 
 
 def k1_best_cases(imgs: dict, dev):
@@ -1003,7 +1098,6 @@ def k8_phase(dev, card):
 
     res = None
     for label, skipstep, x, o, args in k8_cases(dev):
-        tb = 8 * x.itemsize
         words, total, glen = encode_pack_image(*args)
         pw, pt, pg = encode_pack_image_plain(*args)
         used = (int(pt) + 31) // 32
@@ -1011,10 +1105,8 @@ def k8_phase(dev, card):
         t8 = launch_times(lambda: encode_pack_image(*args), "encode_pack_image_kernel")
         check_one_launch(f"K8 {label}", t8, "encode_pack_image_kernel")
         plain = median_ms(lambda: encode_pack_image_plain(*args), 5)
-        ng, gkind = glen.numel(), args[2]
-        need = (x.nbytes + ng * (7 + 2) + stream_bytes(total) + nbytes(total),
-                16 * (int((gkind == 0).sum()) * (CODE_OPS + PLACE_OPS) * wide(tb)
-                      + int((gkind == 1).sum()) * PLACE_OPS) + ng * GROUP_OPS)
+        ng = glen.numel()
+        need = k8_need(x, args, total, ng)
         bms, by = bound(need)
         log(f"K8 encode_pack_image {label} {'FTL' if skipstep else 'BASE'} groups "
             f"{ng} max rung {int(o['rung'].max())}: equal; {pack_times_text(t8)}; "
@@ -1025,6 +1117,60 @@ def k8_phase(dev, card):
                else (err, t8["ms"], plain, need, None, t8["busy_ms"], None))
         del o, args, words, pw
     return {"encode_pack_image": res}
+
+
+def k8_need(x, args, total, ng: int) -> tuple:
+    """K8's (bytes, integer operations) on raster x in ng groups, args those
+    of encode_pack_image: each value read at its width, each group's kind
+    and length, the stream and its total written once; each coded value's
+    code and place, each one-bit value's place, each group's prefix."""
+    tb, gkind = 8 * x.itemsize, args[2]
+    return (x.nbytes + ng * (7 + 2) + stream_bytes(total) + nbytes(total),
+            16 * (int((gkind == 0).sum()) * (CODE_OPS + PLACE_OPS) * wide(tb)
+                  + int((gkind == 1).sum()) * PLACE_OPS) + ng * GROUP_OPS)
+
+
+def k8_photo_phase(dev, card, photo) -> dict:
+    """Phase 3c: K8 against its twin at the photo cell's two strip shapes,
+    the image's first PHOTO_ROWS rows and its last 292 (FTL, Hilbert, the
+    default core band, phase A from a zero band state, as the first strip
+    starts): equal outputs, one launch a call, which must be the kernel and
+    at most one memset, the twin's median and the bound.  The kernels
+    line's entry PHOTO_K8 keeps the full strip's times."""
+    import torch
+
+    from qb3_tpu_torch import api
+    from qb3_tpu_torch.benchutil import median_ms
+    from qb3_tpu_torch.constants import HILBERT
+    from qb3_tpu_torch.ops.encode_cuda import (encode_pack_image, encode_pack_image_plain,
+                                               image_pack_args)
+    from qb3_tpu_torch.ops.encode_image import phase_a_image
+
+    res = {}
+    zero = torch.zeros(3, dtype=torch.int64, device=dev)
+    for rows in (photo[:PHOTO_ROWS], photo[-(PHOTO_H % PHOTO_ROWS):]):
+        label = "u16 {}x{}x{}".format(*rows.shape)
+        o = phase_a_image(api.to_carrier(rows, dev), zero, zero, HILBERT,
+                          tuple(api.default_cband(3)), True, 16)
+        args = image_pack_args(o, 16, n_words_for(rows), HILBERT)
+        before = encode_pack_image.launches
+        words, total, glen = encode_pack_image(*args)
+        check(encode_pack_image.launches == before + 1, f"K8 photo {label}: not one launch")
+        pw, pt, pg = encode_pack_image_plain(*args)
+        used = (int(pt) + 31) // 32
+        err = compare(PHOTO_K8, (words[:used], total, glen), (pw[:used], pt, pg))
+        t8 = launch_times(lambda: encode_pack_image(*args), "encode_pack_image_kernel")
+        check_one_launch(f"K8 photo {label}", t8, "encode_pack_image_kernel")
+        plain = median_ms(lambda: encode_pack_image_plain(*args), 3)
+        need = k8_need(rows, args, total, glen.numel())
+        bms, by = bound(need)
+        log(f"K8 encode_pack_image photo {label} FTL groups {glen.numel()} bits {int(total)} "
+            f"max rung {int(o['rung'].max())}: equal; {pack_times_text(t8)}; twin {plain:.4f} ms, "
+            f"bound {bms:.4f} ms by {by} ({need[0]} bytes, {need[1]} integer operations), "
+            f"{100 * bms / t8['device_ms']:.1f}% of it ({card})")
+        res.setdefault(PHOTO_K8, (err, t8["ms"], plain, need, None, t8["busy_ms"], None))
+        del o, args, words, pw
+    return res
 
 
 def stream_walk(stream, dev):
@@ -2903,6 +3049,8 @@ def main() -> int:
     ix_res, ix_streams = ix_kernel_phase(dev, card, cases)
     kres.update(ix_res)
     kres.update(k8_phase(dev, card))
+    photo = photo_image()
+    kres.update(k8_photo_phase(dev, card, photo))
     best_streams = best_ib_streams(dev, tiles)
     kres.update(k7_phase(dev, card, img, wide_image("u64 1024x1024x1"), best_streams))
     for name, err in {**k5_phase(dev, card, best_streams),
@@ -3144,6 +3292,10 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     launches["quantize_carrier"] = dem_phase(dev, card, kernels, scene)
     del scene
+    photo_launches = photo_phase(dev, card, kernels, photo)
+    for k, n in photo_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    del photo
     landsat_split(dev, card)
     launches.update(probe_main_path(kernels))
 
@@ -3184,6 +3336,8 @@ def main() -> int:
     line += [entry(name, "pack_groups_chunked", best_k1[name]) for name in BEST_K1]
     # K6's stitch entry, launched by every device stitch
     line.append(entry("place_slabs stitch", "place_slabs", launches["place_parts"]))
+    # K8 at the photo cell's strip, launched by the photo's strip and one-shot encodes
+    line.append(entry(PHOTO_K8, "encode_pack_image", photo_launches["encode_pack_image"]))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

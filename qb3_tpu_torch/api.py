@@ -264,9 +264,13 @@ def fused_encode(img, entry_prev, entry_runbits, order: int, cband: tuple,
     then K8 packs straight from the mag-sign plane.
 
     img (H, W, C) int64 carrier, H and W multiples of 4; returns what
-    fast_encode returns, with the same values."""
-    o = phase_a_image(img, entry_prev, entry_runbits, order, cband, skipstep, tbits)
-    words, total, glen = encode_pack_image(*image_pack_args(o, tbits, n_words, order))
+    fast_encode returns, with the same values.  Spans (profiling), as
+    fast_encode's: encode.phase_a (the image-layout phase A) and
+    encode.pack (K8), on the device's current stream."""
+    with profiling.span("encode.phase_a", 1, img.device):
+        o = phase_a_image(img, entry_prev, entry_runbits, order, cband, skipstep, tbits)
+    with profiling.span("encode.pack", 1, img.device):
+        words, total, glen = encode_pack_image(*image_pack_args(o, tbits, n_words, order))
     return words, total, o["exit_prev"], o["exit_runbits"], glen, o["rung"]
 
 

@@ -26,18 +26,22 @@ batch: the pipeline's upload (``pipeline.upload``, the pinned staging of
 ``Lanes.put``), its wait on a batch's fetch (``pipeline.fetch_wait``: how
 long the host waits for the card, its slack) and its finish
 (``pipeline.finish``); the fast and best phase A (``encode.phase_a``) and
-K1's pack (``encode.pack``); the best batch's uploads (``batch.upload``,
-a pass's staging and copy), its fetch (``batch.fetch``) and its finish
-(``batch.finish``); inside ``batch.encode_finish`` the ``finish.sidecar``,
-``finish.headers`` and ``finish.bytes`` passes.  The strip encoder
+K1's pack (``encode.pack``), names that the image-layout encode
+(``api.fused_encode``) opens too, around its phase A and K8, with device
+ms; the best batch's uploads (``batch.upload``, a pass's staging and
+copy), its fetch (``batch.fetch``) and its finish (``batch.finish``);
+inside ``batch.encode_finish`` the ``finish.sidecar``, ``finish.headers``
+and ``finish.bytes`` passes.  The strip encoder
 (``strip.StripEncoder``) opens ``strip.push`` around each push, and inside
 it, for each strip the push completes, ``strip.encode`` (the strip's
-upload, its step, phase A, K1 and the blocking reads of its exit state and
-bit total, with device ms), which holds ``strip.quantize`` where the step
-is 2 or more (K11's launch, with device ms; its twin on the CPU); the
-strip encoder's ``finish()`` is ``strip.finish``, around
-``strip.stitch`` (K6's stitch of the strips' words, with device ms) and,
-in an RLE mode, ``finish.rle0`` (the RLE0 post-pass of
+upload, its step, phase A, its pack and the blocking reads of its exit
+state and bit total, with device ms), which holds ``strip.quantize`` where
+the step is 2 or more (K11's launch, with device ms; its twin on the CPU)
+and, in the fast modes, the strip's ``encode.phase_a`` and ``encode.pack``;
+the strip encoder's ``finish()`` is ``strip.finish``, around
+``strip.stitch`` (K6's stitch of the strips' words, with device ms),
+``strip.bytes`` (the stitched words' download and ``words_to_bytes``,
+host ms) and, in an RLE mode, ``finish.rle0`` (the RLE0 post-pass of
 ``framing.Frame.finish``).  A span records its name,
 host start and end (``time.perf_counter_ns``), its parent span, its batch
 (every span of one batch shares an id: the pipeline interleaves batch k's

@@ -156,7 +156,8 @@ class StripEncoder:
         with profiling.span("strip.stitch", device=e.device):
             words, total = stitch_words_device(self._parts, self._totals, (total + 31) // 32)
         self._parts = []
-        payload = words_to_bytes(words.cpu().numpy().view(np.uint32), total)
+        with profiling.span("strip.bytes"):
+            payload = words_to_bytes(words.cpu().numpy().view(np.uint32), total)
 
         pieces = {k: np.concatenate([p[k] for p in self._pieces]) for k in self._pieces[0]} \
             if self._pieces else {}

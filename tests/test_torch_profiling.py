@@ -200,8 +200,8 @@ def test_strip_spans_nest_under_push_and_finish(mode):
     """Off: no record, and the counters still count.  On: the same stream; a
     strip.push a push, each holding its strip's strip.encode, which holds
     the strip's strip.quantize (K11's launch, its twin here); strip.finish
-    holding strip.stitch and, in the RLE mode alone, finish.rle0; 12 strips
-    and one scene counted."""
+    holding strip.stitch, strip.bytes and, in the RLE mode alone,
+    finish.rle0; 12 strips and one scene counted."""
     before = profiling.counters()
     off = _dem_strips(mode)
     assert profiling.records() == []
@@ -218,14 +218,15 @@ def test_strip_spans_nest_under_push_and_finish(mode):
     rle = ["finish.rle0"] if mode == Mode.CF_RLE_H else []
     assert {k: len(v) for k, v in by.items()} == {
         "strip.push": 12, "strip.quantize": 12, "strip.encode": 12, "strip.finish": 1,
-        "strip.stitch": 1, **{k: 1 for k in rle}}
+        "strip.stitch": 1, "strip.bytes": 1, **{k: 1 for k in rle}}
     pushes = [r["id"] for r in by["strip.push"]]
     assert [r["parent"] for r in by["strip.encode"]] == pushes
     assert [r["parent"] for r in by["strip.quantize"]] == [r["id"] for r in by["strip.encode"]]
     (fin,) = by["strip.finish"]
     assert fin["parent"] is None and all(r["parent"] is None for r in by["strip.push"])
-    for name in ["strip.stitch", *rle]:
+    for name in ["strip.stitch", "strip.bytes", *rle]:
         assert by[name][0]["parent"] == fin["id"]
+    assert by["strip.bytes"][0]["t0_ns"] >= by["strip.stitch"][0]["t1_ns"]
     for r in (r for rs in by.values() for r in rs):
         assert r["device_ms"] is None and r["host_ms"] >= 0
 
@@ -376,7 +377,8 @@ def test_card_spans_have_device_times(cuda, path):
 def test_card_strip_spans_have_device_times(cuda):
     """On the card: the strips' stream equals the CPU's with the tracer on;
     strip.quantize (K11, launched once a strip), strip.encode and
-    strip.stitch carry device ms, the host stages none."""
+    strip.stitch carry device ms, the host stages (strip.bytes among them)
+    none."""
     cpu = _dem_strips(Mode.CF_RLE_H)
     profiling.enable()
     launches = quantize_carrier.launches
@@ -384,7 +386,8 @@ def test_card_strip_spans_have_device_times(cuda):
     assert quantize_carrier.launches == launches + 12
     rs = profiling.records()
     assert {r["name"] for r in rs} == {"strip.push", "strip.quantize", "strip.encode",
-                                       "strip.finish", "strip.stitch", "finish.rle0"}
+                                       "strip.finish", "strip.stitch", "strip.bytes",
+                                       "finish.rle0"}
     for r in rs:
         on_card = r["name"] in ("strip.quantize", "strip.encode", "strip.stitch")
         assert (r["device_ms"] is not None) == on_card
